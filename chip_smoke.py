@@ -1,0 +1,385 @@
+#!/usr/bin/env python3
+"""Smoke run of ray_tpu_torch on one NVIDIA H100 (sm_90).
+
+    python3 chip_smoke.py                    # from the repo root
+    python3 chip_smoke.py --profile FILE     # also profiles one step and
+                                             # writes the table to FILE
+
+Phases, each of which raises (and so exits non-zero) on failure:
+  1. device: CUDA present, capability (9, 0); prints the card's name and
+     power limit; TF32 off so the f32 plain versions are full f32.
+  2. build: compiles the flash-attention kernels from ops/csrc with nvcc.
+  3. kernels: each kernel against its plain PyTorch version on the same
+     bf16 inputs, at the GPT-2-125M shape [16, 1024, 6, 128] causal, a
+     ragged T and a head_dim-64 case; then times kernel, plain version
+     and, where one PyTorch call computes the same function, that call.
+  4. reference: a narrow model's loss and grads on the card (bf16, through
+     the kernels) against the port's CPU path (f32, plain versions) from
+     the same params.
+  5. the slice: GPT-2-125M training steps at batch 16 x 1024 through
+     make_train_step, exactly as bench.py runs the JAX package (3 warm-up
+     steps, then timed steps on the same batch); the launch counters,
+     zeroed just before, must show 12 launches of each kernel per step.
+Then it prints {"kernels": [...]}, the nvidia-smi line, and
+{"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import os
+import sys
+import time
+
+# Each element of a kernel's output is held to its plain version by
+# |kernel - plain| <= RTOL |plain| + ATOL_ROW rms(row of plain), a row
+# being the last dimension: a query row of o and dq, a key row of dk and
+# dv. The kernels round P and dS to bf16 (unit roundoff 2^-8) before
+# their products, as the Pallas kernel does (flash_attention.py:471), and
+# their outputs are bf16; the plain version stays in f32. Rounding P adds
+# to each output element an error of random sign with a std of about
+# 2.3e-3 of its row's RMS, about 1.2e-2 at the largest of the ~12.6M
+# elements at the main shape; ATOL_ROW leaves room for that, and RTOL
+# (four unit roundoffs) for the bf16 output. A row's RMS is floored at
+# 1e-3 of the tensor's: dq's first query row is zero in exact arithmetic.
+RTOL = 1.6e-2
+ATOL_ROW = 3e-2
+LSE_TOL = 1e-3       # absolute, on lse (f32 throughout)
+WARMUP, TIMED = 3, 10   # training steps, as bench.py warms up and times
+BATCH = 16
+SEED = 0
+
+
+@contextlib.contextmanager
+def phase(name):
+    t0 = time.perf_counter()
+    print(f"[{name}] ...", flush=True)
+    yield
+    print(f"[{name}] ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def cuda_ms(torch, fn, iters):
+    """Mean time of fn on the card over `iters` warm launches (CUDA
+    events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def excess(a, ref):
+    """Worst |a - ref| / (RTOL |ref| + ATOL_ROW rms_row(ref)) over all
+    elements: at most 1 passes, NaN fails."""
+    a, ref = a.float(), ref.float()
+    rms = ref.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(
+        1e-3 * ref.pow(2).mean().sqrt().item())
+    return ((a - ref).abs() / (RTOL * ref.abs() + ATOL_ROW * rms)).max().item()
+
+
+def check_kernels(torch, fa, b, t, h, d, gen, qk_views=True):
+    """Run the three kernels and their plain versions on the same bf16
+    inputs; returns the max absolute error per kernel, and raises where
+    an output is not within RTOL / ATOL_ROW of its plain version (excess
+    above 1) or lse is not within LSE_TOL.
+
+    q, k and v are views of one [B, T, 3, H, D] tensor, as the model's
+    fused qkv projection gives them (models/transformer.py); with
+    qk_views=False q and k are contiguous copies, as RoPE writes them, so
+    every operand has the strides the main path gives the kernels."""
+    qkv = torch.randn(b, t, 3, h, d, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    if not qk_views:
+        q, k = q.contiguous(), k.contiguous()
+    do = torch.randn(b, t, h, d, device="cuda",
+                     generator=gen).to(torch.bfloat16)
+    scale = d ** -0.5
+    o, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
+    # the plain versions run in f32 on the same values, and their outputs
+    # stay f32; the backward kernels get the plain lse/di, so each kernel
+    # is checked alone
+    f32 = [x.float() for x in (q, k, v, do)]
+    o_ref, lse_ref = fa.flash_fwd_ref(*f32[:3], scale, True)
+    di = fa.row_dot(o_ref, do)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, di, scale, True)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse_ref, di, scale, True)
+    torch.cuda.synchronize()
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*f32, lse_ref, di, scale, True)
+    dq_ref = fa.flash_bwd_dq_ref(*f32, lse_ref, di, scale, True)
+    del f32
+    outs = {"flash_fwd": {"o": (o, o_ref)},
+            "flash_bwd_dkv": {"dk": (dk, dk_ref), "dv": (dv, dv_ref)},
+            "flash_bwd_dq": {"dq": (dq, dq_ref)}}
+    lse_err = (lse - lse_ref).abs().max().item()
+    abs_errs, worst, line = {}, {}, []
+    for name, pairs in outs.items():
+        for out, (a, r) in pairs.items():
+            if not torch.isfinite(a.float()).all().item():
+                raise AssertionError(f"non-finite {out} at {(b, t, h, d)}")
+            err = (a.float() - r).abs().max().item()
+            abs_errs[name] = max(abs_errs.get(name, 0.0), err)
+            worst[out] = excess(a, r)
+            line.append(f"{out} max|err| {err:.3e} (max|plain| "
+                        f"{r.abs().max().item():.3e}), excess "
+                        f"{worst[out]:.3f}")
+    layout = "views" if qk_views else "contiguous"
+    print(f"  [{b},{t},{h},{d}] causal, q/k {layout}: " + "; ".join(line)
+          + f"; lse max|err| {lse_err:.3e}", flush=True)
+    for out, x in worst.items():
+        if not x <= 1.0:
+            raise AssertionError(f"{out} disagrees with its plain version "
+                                 f"at {(b, t, h, d)}: excess {x:.3f}")
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"flash_fwd lse error {lse_err:.3e}")
+    return abs_errs, (q, k, v, do, o, lse, di)
+
+
+def bounds_ms(name, b, t, h, d, peak_flops, peak_bw):
+    """Least time on the card: the larger of FLOPs over the bf16 peak and
+    bytes (each input read once, each output written once) over the
+    memory rate. Causal: only the lower triangle's t(t+1)/2 pairs."""
+    pairs = b * h * t * (t + 1) / 2
+    tensor = b * t * h * d * 2           # one bf16 [B,T,H,D]
+    stat = b * h * t * 4                 # one f32 [B,H,T]
+    passes, nbytes = {
+        "flash_fwd": (2, 3 * tensor + tensor + stat),
+        "flash_bwd_dkv": (4, 4 * tensor + 2 * stat + 2 * tensor),
+        "flash_bwd_dq": (3, 4 * tensor + 2 * stat + tensor),
+    }[name]
+    flops = passes * 2 * pairs * d
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def grads_close(torch, model_gpu, model_cpu, tol):
+    worst = 0.0
+    for (name, pg), (_, pc) in zip(model_gpu.named_parameters(),
+                                   model_cpu.named_parameters()):
+        diff = (pg.grad.float().cpu() - pc.grad).norm() / pc.grad.norm()
+        worst = max(worst, diff.item())
+        if not diff.item() < tol:
+            raise AssertionError(f"grad {name}: relative error {diff:.3e}")
+    return worst
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", metavar="FILE",
+                    help="profile one training step after the timed ones "
+                         "and write the per-op table to FILE")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from ray_tpu_torch._device import gpu_info, peak_rates
+    from ray_tpu_torch.models import GPT2_125M, Transformer
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step
+
+    with phase("device"):
+        cap = torch.cuda.get_device_capability(0)
+        if cap != (9, 0):
+            raise AssertionError(f"needs an sm_90 card, got capability {cap}")
+        kind = torch.cuda.get_device_name(0)
+        smi = gpu_info()
+        peak_flops, peak_bw = peak_rates(kind)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"  {kind}; nvidia-smi: {smi}; torch {torch.__version__}, "
+              f"CUDA {torch.version.cuda}; peaks {peak_flops / 1e12:.0f} "
+              f"TFLOP/s bf16, {peak_bw / 1e12:.2f} TB/s", flush=True)
+
+    with phase("build"):
+        t0 = time.perf_counter()
+        _build.build()
+        for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+            _build.kernel(name)
+        print(f"  build {time.perf_counter() - t0:.1f} s", flush=True)
+        for src, log in _build.build_logs().items():
+            used = [line.split("info    : ")[-1] for line in log.splitlines()
+                    if "registers" in line or "spill" in line]
+            print(f"  {src}: " + "; ".join(used), flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    records = {}
+    with phase("kernels"):
+        check_kernels(torch, fa, 2, 1000, 3, 128, gen)   # ragged T
+        check_kernels(torch, fa, 4, 520, 8, 64, gen)     # D = 64, ragged
+        b, t, h, d = BATCH, GPT2_125M.max_seq_len, GPT2_125M.n_heads, \
+            GPT2_125M.head_dim
+        errs, (q, k, v, do, o, lse, di) = check_kernels(
+            torch, fa, b, t, h, d, gen, qk_views=False)
+        scale = d ** -0.5
+        runs = {
+            "flash_fwd": (lambda: fa._flash_fwd_cuda(q, k, v, scale, True),
+                          lambda: fa.flash_fwd_ref(q, k, v, scale, True)),
+            "flash_bwd_dkv": (
+                lambda: fa._flash_bwd_dkv_cuda(q, k, v, do, lse, di, scale,
+                                               True),
+                lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, di, scale,
+                                             True)),
+            "flash_bwd_dq": (
+                lambda: fa._flash_bwd_dq_cuda(q, k, v, do, lse, di, scale,
+                                              True),
+                lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, di, scale,
+                                            True)),
+        }
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library = {"flash_fwd": lambda: sdpa(qt, kt, vt, is_causal=True)}
+        for name, (kern, plain) in runs.items():
+            bound, bound_by = bounds_ms(name, b, t, h, d, peak_flops,
+                                        peak_bw)
+            records[name] = {
+                "max_abs_err": errs[name],
+                "ms": cuda_ms(torch, kern, 50),
+                "plain_ms": cuda_ms(torch, plain, 3),
+                "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": (cuda_ms(torch, library[name], 50)
+                               if name in library else None),
+            }
+            print(f"  {name}: {json.dumps(records[name])}", flush=True)
+        # yardstick only: PyTorch's fused attention forward + backward
+        qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg),
+                                dot)
+
+        print(f"  sdpa fwd+bwd {cuda_ms(torch, sdpa_fwd_bwd, 20):.4f} ms; "
+              "kernels fwd+dkv+dq "
+              f"{sum(r['ms'] for r in records.values()):.4f} ms", flush=True)
+        del q, k, v, do, o, lse, di, qt, kt, vt, qg, kg, vg, dot
+
+    with phase("reference"):
+        # a narrow model that takes the same kernels (head_dim 128, ragged
+        # T): bf16 on the card against f32 plain versions on the CPU
+        small = GPT2_125M.replace(d_model=256, n_heads=2, d_ff=512,
+                                  n_layers=2, vocab_size=512, loss_chunk=0,
+                                  attention_impl="auto")
+        m_gpu = Transformer(small, seed=SEED)
+        m_cpu = Transformer(small.replace(dtype="float32"), device="cpu")
+        m_cpu.load_state_dict({n: p.cpu() for n, p in
+                               m_gpu.state_dict().items()})
+        tok = torch.randint(0, small.vocab_size, (2, 301), generator=gen,
+                            device="cuda")
+        l_gpu = m_gpu.loss({"tokens": tok})
+        l_gpu.backward()
+        l_cpu = m_cpu.loss({"tokens": tok.cpu()})
+        l_cpu.backward()
+        loss_err = abs(l_gpu.item() - l_cpu.item()) / abs(l_cpu.item())
+        # bf16 compute against f32: 2e-2 on the loss, 5e-2 on each grad's
+        # relative norm error
+        if not (math.isfinite(l_gpu.item()) and loss_err < 2e-2):
+            raise AssertionError(f"loss {l_gpu.item()} vs {l_cpu.item()}")
+        worst = grads_close(torch, m_gpu, m_cpu, 5e-2)
+        print(f"  loss bf16 card {l_gpu.item():.5f} vs f32 CPU "
+              f"{l_cpu.item():.5f} (rel {loss_err:.2e}); worst grad rel "
+              f"norm err {worst:.2e}", flush=True)
+        del m_gpu, m_cpu
+
+    with phase("slice"):
+        cfg = GPT2_125M.replace(remat=False, attention_impl="auto",
+                                loss_chunk=0)
+        model = Transformer(cfg, seed=SEED)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (BATCH, cfg.max_seq_len + 1), generator=gen,
+                               device="cuda")
+        batch = {"tokens": tokens}
+        init_state, train_step = make_train_step(
+            lambda p, bt: model.loss(bt),
+            optimizer=adamw(1e-4, weight_decay=0.01))
+        state = init_state(dict(model.named_parameters()))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        losses = []
+        for _ in range(WARMUP):
+            state, metrics = train_step(state, batch)
+            losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = []
+        for _ in range(TIMED):
+            state, metrics = train_step(state, batch)
+            timed.append(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(fa.launches)
+        losses += [x.item() for x in timed]
+        n_steps = len(losses)
+        step_ms = dt / TIMED * 1e3
+        tok_s = BATCH * cfg.max_seq_len * TIMED / dt
+        print(f"  losses {['%.4f' % x for x in losses]}", flush=True)
+        print(f"  grad_norm {metrics['grad_norm'].item():.4f}, step "
+              f"{state['step']}", flush=True)
+        print(f"  step {step_ms:.2f} ms, {tok_s:.1f} tokens/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"launches {launches}; {kind}; {smi}", flush=True)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite loss: {losses}")
+        if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+            raise AssertionError(f"initial loss {losses[0]} is not near "
+                                 f"ln({cfg.vocab_size})")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"loss does not fall: {losses}")
+        want = cfg.n_layers * n_steps
+        if launches != {n: want for n in launches}:
+            raise AssertionError(f"expected {cfg.n_layers} launches of each "
+                                 f"kernel per step ({want}), got {launches}")
+        for name in records:
+            records[name]["launches"] = launches[name]
+        if args.profile:
+            profile_step(torch, train_step, state, batch, args.profile)
+
+    sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
+                             "jax/experimental/pallas/ops/tpu/"
+                             "flash_attention.py:758"),
+               "flash_bwd_dkv": ("ray_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
+                                 "jax/experimental/pallas/ops/tpu/"
+                                 "flash_attention.py:1121"),
+               "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd_dq.cu",
+                                "jax/experimental/pallas/ops/tpu/"
+                                "flash_attention.py:1456")}
+    kernels = [{"name": n, "route": "cuda", "source": sources[n][0],
+                "replaces": sources[n][1], **records[n]} for n in records]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def profile_step(torch, train_step, state, batch, path):
+    """One step under torch.profiler; writes the device time per op and
+    kernel name to `path` and prints the top rows."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_step(state, batch)
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=80)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(table)
+    print("\n".join(table.splitlines()[:25]), flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
