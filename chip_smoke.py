@@ -8,11 +8,16 @@
 Phases, each of which raises (and so exits non-zero) on failure:
   1. device: CUDA present, capability (9, 0); prints the card's name and
      power limit; TF32 off so the f32 plain versions are full f32.
-  2. build: compiles the flash-attention kernels from ops/csrc with nvcc.
+  2. build: compiles the flash-attention kernels from ops/csrc with nvcc;
+     prints each library's registers, spills and SASS counts (cuobjdump)
+     and fails if the Hopper kernels (forward, dK/dV) spill or hold no
+     HGMMA (wgmma) or UTMALDG (TMA load).
   3. kernels: each kernel against its plain PyTorch version on the same
      bf16 inputs, at the GPT-2-125M shape [16, 1024, 6, 128] causal, a
-     ragged T and a head_dim-64 case; then times kernel, plain version
-     and, where one PyTorch call computes the same function, that call.
+     ragged T, a head_dim-64 case, a non-causal case and a T shorter than
+     one tile; then times kernel, plain version and, where one PyTorch
+     call computes the same function, that call (for the backward pair,
+     PyTorch's flash-attention backward, which gives dQ, dK and dV).
   4. reference: a narrow model's loss and grads on the card (bf16, through
      the kernels) against the port's CPU path (f32, plain versions) from
      the same params.
@@ -31,6 +36,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import sys
 import time
 
@@ -51,6 +57,17 @@ LSE_TOL = 1e-3       # absolute, on lse (f32 throughout)
 WARMUP, TIMED = 3, 10   # training steps, as bench.py warms up and times
 BATCH = 16
 SEED = 0
+# the kernels rebuilt for Hopper (TMA, wgmma); flash_bwd_dq.cu is not yet
+HOPPER_SOURCES = ("flash_fwd.cu", "flash_bwd_dkv.cu")
+# each kernel's source and the TPU kernel it replaces
+KERNEL_SOURCES = {
+    "flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "jax/experimental/pallas/ops/tpu/flash_attention.py:758"),
+    "flash_bwd_dkv": ("ray_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
+                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
+    "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd_dq.cu",
+                     "jax/experimental/pallas/ops/tpu/flash_attention.py:1456")}
+BWD_LIBRARY = "aten._scaled_dot_product_flash_attention_backward (dQ, dK, dV)"
 
 
 @contextlib.contextmanager
@@ -85,11 +102,13 @@ def excess(a, ref):
     return ((a - ref).abs() / (RTOL * ref.abs() + ATOL_ROW * rms)).max().item()
 
 
-def check_kernels(torch, fa, b, t, h, d, gen, qk_views=True):
-    """Run the three kernels and their plain versions on the same bf16
-    inputs; returns the max absolute error per kernel, and raises where
-    an output is not within RTOL / ATOL_ROW of its plain version (excess
-    above 1) or lse is not within LSE_TOL.
+def check_kernels(torch, fa, b, t, h, d, gen, qk_views=True, causal=True,
+                  names=("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")):
+    """Run the kernels `names` (by default all three) and their plain
+    versions on the same bf16 inputs (causal or not); returns the max
+    absolute error per kernel, and raises where an output is not within
+    RTOL / ATOL_ROW of its plain version (excess above 1) or lse (checked
+    with the forward) is not within LSE_TOL.
 
     q, k and v are views of one [B, T, 3, H, D] tensor, as the model's
     fused qkv projection gives them (models/transformer.py); with
@@ -103,23 +122,25 @@ def check_kernels(torch, fa, b, t, h, d, gen, qk_views=True):
     do = torch.randn(b, t, h, d, device="cuda",
                      generator=gen).to(torch.bfloat16)
     scale = d ** -0.5
-    o, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
+    o, lse = fa._flash_fwd_cuda(q, k, v, scale, causal)
     # the plain versions run in f32 on the same values, and their outputs
     # stay f32; the backward kernels get the plain lse/di, so each kernel
     # is checked alone
     f32 = [x.float() for x in (q, k, v, do)]
-    o_ref, lse_ref = fa.flash_fwd_ref(*f32[:3], scale, True)
+    o_ref, lse_ref = fa.flash_fwd_ref(*f32[:3], scale, causal)
     di = fa.row_dot(o_ref, do)
-    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, di, scale, True)
-    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse_ref, di, scale, True)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, di, scale, causal)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse_ref, di, scale, causal)
     torch.cuda.synchronize()
-    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*f32, lse_ref, di, scale, True)
-    dq_ref = fa.flash_bwd_dq_ref(*f32, lse_ref, di, scale, True)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*f32, lse_ref, di, scale, causal)
+    dq_ref = fa.flash_bwd_dq_ref(*f32, lse_ref, di, scale, causal)
     del f32
     outs = {"flash_fwd": {"o": (o, o_ref)},
             "flash_bwd_dkv": {"dk": (dk, dk_ref), "dv": (dv, dv_ref)},
             "flash_bwd_dq": {"dq": (dq, dq_ref)}}
-    lse_err = (lse - lse_ref).abs().max().item()
+    outs = {n: outs[n] for n in names}
+    lse_err = ((lse - lse_ref).abs().max().item() if "flash_fwd" in names
+               else 0.0)
     abs_errs, worst, line = {}, {}, []
     for name, pairs in outs.items():
         for out, (a, r) in pairs.items():
@@ -132,12 +153,13 @@ def check_kernels(torch, fa, b, t, h, d, gen, qk_views=True):
                         f"{r.abs().max().item():.3e}), excess "
                         f"{worst[out]:.3f}")
     layout = "views" if qk_views else "contiguous"
-    print(f"  [{b},{t},{h},{d}] causal, q/k {layout}: " + "; ".join(line)
+    mode = "causal" if causal else "non-causal"
+    print(f"  [{b},{t},{h},{d}] {mode}, q/k {layout}: " + "; ".join(line)
           + f"; lse max|err| {lse_err:.3e}", flush=True)
     for out, x in worst.items():
         if not x <= 1.0:
             raise AssertionError(f"{out} disagrees with its plain version "
-                                 f"at {(b, t, h, d)}: excess {x:.3f}")
+                                 f"at {(b, t, h, d)} {mode}: excess {x:.3f}")
     if not lse_err <= LSE_TOL:
         raise AssertionError(f"flash_fwd lse error {lse_err:.3e}")
     return abs_errs, (q, k, v, do, o, lse, di)
@@ -159,6 +181,42 @@ def bounds_ms(name, b, t, h, d, peak_flops, peak_bw):
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+def library_backward(torch, qt, kt, vt, dot, scale):
+    """A closure running PyTorch's flash-attention backward on [B, H, T, D]
+    views, its saved tensors taken from PyTorch's own forward on the same
+    q, k, v (a yardstick only)."""
+    aten = torch.ops.aten
+    out, lse, cq, ck, mq, mk, seed, offset, _ = \
+        aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True,
+                                                 False, scale=scale)
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True, seed, offset,
+        scale=scale)
+
+
+def build_report(build, log, src, out=None):
+    """(one "D=<d>: registers, spills" entry per kernel instantiation,
+    spilled bytes, SASS counts) of one library's nvcc -Xptxas -v log, the
+    library being `src`'s in build directory `out` (by default the
+    current build)."""
+    used, spilled, name = [], 0, "?"
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*?ILi(\d+)E", line)
+        if m:
+            name = f"D={m.group(1)}"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spilled += int(m.group(1)) + int(m.group(2))
+            used.append(f"{name}: {m.group(0)}")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and used:
+            used[-1] += f", {m.group(1)} registers"
+        if "Potential Performance Loss" in line:   # e.g. serialised wgmma
+            used.append(f"{name}: {line.split('Loss: ')[-1].strip()}")
+    return used, spilled, build.sass(src, out)
 
 
 def grads_close(torch, model_gpu, model_cpu, tol):
@@ -208,10 +266,15 @@ def main(argv=None) -> int:
         for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
             _build.kernel(name)
         print(f"  build {time.perf_counter() - t0:.1f} s", flush=True)
+        sass, spills = {}, {}
         for src, log in _build.build_logs().items():
-            used = [line.split("info    : ")[-1] for line in log.splitlines()
-                    if "registers" in line or "spill" in line]
-            print(f"  {src}: " + "; ".join(used), flush=True)
+            used, spills[src], sass[src] = build_report(_build, log, src)
+            print(f"  {src}: " + "; ".join(used) + f"; SASS {sass[src]}",
+                  flush=True)
+            if src in HOPPER_SOURCES and not (sass[src]["HGMMA"]
+                                              and sass[src]["UTMALDG"]):
+                raise AssertionError(f"{src} must use wgmma and TMA: SASS "
+                                     f"{sass[src]}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = {}
@@ -222,6 +285,9 @@ def main(argv=None) -> int:
             GPT2_125M.head_dim
         errs, (q, k, v, do, o, lse, di) = check_kernels(
             torch, fa, b, t, h, d, gen, qk_views=False)
+        # the causal flag off (ragged T), and T inside one 128-row tile
+        check_kernels(torch, fa, 2, 1000, 3, 128, gen, causal=False)
+        check_kernels(torch, fa, 2, 100, 3, 128, gen)
         scale = d ** -0.5
         runs = {
             "flash_fwd": (lambda: fa._flash_fwd_cuda(q, k, v, scale, True),
@@ -238,23 +304,41 @@ def main(argv=None) -> int:
                                             True)),
         }
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        dot = do.transpose(1, 2)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        library = {"flash_fwd": lambda: sdpa(qt, kt, vt, is_causal=True)}
+        # yardsticks only, never on the port's path: the forward, and
+        # PyTorch's flash-attention backward, which gives dQ, dK and dV in
+        # one call (both backward rows carry its time)
+        bwd_call = library_backward(torch, qt, kt, vt, dot, scale)
+        library = {
+            "flash_fwd": ("scaled_dot_product_attention, causal",
+                          lambda: sdpa(qt, kt, vt, is_causal=True)),
+            "flash_bwd_dkv": (BWD_LIBRARY, bwd_call),
+            "flash_bwd_dq": (BWD_LIBRARY, bwd_call)}
+        lib_ms = {}
         for name, (kern, plain) in runs.items():
             bound, bound_by = bounds_ms(name, b, t, h, d, peak_flops,
                                         peak_bw)
+            call, fn = library[name]
+            if call not in lib_ms:
+                lib_ms[call] = cuda_ms(torch, fn, 50)
             records[name] = {
                 "max_abs_err": errs[name],
                 "ms": cuda_ms(torch, kern, 50),
                 "plain_ms": cuda_ms(torch, plain, 3),
                 "bound_ms": bound, "bound_by": bound_by,
-                "library_ms": (cuda_ms(torch, library[name], 50)
-                               if name in library else None),
+                "library_ms": lib_ms[call], "library_call": call,
+                "sass": sass[KERNEL_SOURCES[name][0].rsplit("/", 1)[1]],
             }
             print(f"  {name}: {json.dumps(records[name])}", flush=True)
+        row_dot_ms = cuda_ms(torch, lambda: fa.row_dot(o, do), 50)
+        print(f"  backward: dK/dV + dQ + row_dot "
+              f"{records['flash_bwd_dkv']['ms']:.4f} + "
+              f"{records['flash_bwd_dq']['ms']:.4f} + {row_dot_ms:.4f} = "
+              f"{records['flash_bwd_dkv']['ms'] + records['flash_bwd_dq']['ms'] + row_dot_ms:.4f}"
+              f" ms; {BWD_LIBRARY} {lib_ms[BWD_LIBRARY]:.4f} ms", flush=True)
         # yardstick only: PyTorch's fused attention forward + backward
         qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
-        dot = do.transpose(1, 2)
 
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg),
@@ -263,7 +347,10 @@ def main(argv=None) -> int:
         print(f"  sdpa fwd+bwd {cuda_ms(torch, sdpa_fwd_bwd, 20):.4f} ms; "
               "kernels fwd+dkv+dq "
               f"{sum(r['ms'] for r in records.values()):.4f} ms", flush=True)
-        del q, k, v, do, o, lse, di, qt, kt, vt, qg, kg, vg, dot
+        # fn (the library backward) holds views of q, k, v, do and its own
+        # forward's output: free them before the slice's peak memory
+        del q, k, v, do, o, lse, di, qt, kt, vt, qg, kg, vg, dot, bwd_call, \
+            library, fn
 
     with phase("reference"):
         # a narrow model that takes the same kernels (head_dim 128, ragged
@@ -346,17 +433,15 @@ def main(argv=None) -> int:
         if args.profile:
             profile_step(torch, train_step, state, batch, args.profile)
 
-    sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
-                             "jax/experimental/pallas/ops/tpu/"
-                             "flash_attention.py:758"),
-               "flash_bwd_dkv": ("ray_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
-                                 "jax/experimental/pallas/ops/tpu/"
-                                 "flash_attention.py:1121"),
-               "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd_dq.cu",
-                                "jax/experimental/pallas/ops/tpu/"
-                                "flash_attention.py:1456")}
-    kernels = [{"name": n, "route": "cuda", "source": sources[n][0],
-                "replaces": sources[n][1], **records[n]} for n in records]
+    # after the runs, so that a spill does not hide what the kernels do
+    spilled = {src: n for src, n in spills.items()
+               if src in HOPPER_SOURCES and n}
+    if spilled:
+        raise AssertionError(f"spilled bytes (registers to local memory): "
+                             f"{spilled}")
+    kernels = [{"name": n, "route": "cuda", "source": KERNEL_SOURCES[n][0],
+                "replaces": KERNEL_SOURCES[n][1], **records[n]}
+               for n in records]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -374,7 +459,7 @@ def profile_step(torch, train_step, state, batch, path):
         train_step(state, batch)
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=80)
+                                      row_limit=150)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(table)

@@ -6,6 +6,12 @@ plain ``extern "C"`` interface (no PyTorch headers, so a build takes
 seconds). The libraries go to ``ray_tpu_torch/_build/<hash>/``, keyed on a
 hash of the sources and the flags, and are reused while that hash holds.
 A build happens at the first call of a kernel, never at import.
+
+``flash_fwd.cu`` and ``flash_bwd_dkv.cu`` include ``hopper_common.cuh``
+(TMA, mbarriers, wgmma); it looks up libcuda's tensor-map encoder through
+the CUDA runtime, so no link flag beyond nvcc's defaults is needed.
+``sass_counts`` reads ``cuobjdump -sass`` of a built library, from the same
+toolkit as nvcc, to show which instructions a kernel was compiled to.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -37,11 +44,45 @@ SIGNATURES = {
     "flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_L] * 12 + [_F, _I, _P],
 }
 
+# SASS opcodes counted per library: Hopper's warpgroup MMA and TMA load,
+# Ampere's mma.sync, and the mbarrier operations
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "SYNCS")
+# one instruction of `cuobjdump -sass`: "/*0a30*/  @!P0 OPCODE.MODS ..."
+_SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+
 _loaded: Dict[str, object] = {}  # C entry point name -> ctypes function
 
 
 class KernelBuildError(RuntimeError):
     """nvcc is missing, or a kernel source failed to compile or load."""
+
+
+def find_cuobjdump() -> str:
+    """cuobjdump from the same toolkit bin as nvcc; raises if missing."""
+    path = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    if not (os.path.isfile(path) and os.access(path, os.X_OK)):
+        raise KernelBuildError(f"cuobjdump not found beside nvcc ({path})")
+    return path
+
+
+def sass_counts(text: str) -> Dict[str, int]:
+    """Instructions per opcode in SASS_OPS in `cuobjdump -sass` output."""
+    counts = dict.fromkeys(SASS_OPS, 0)
+    for m in _SASS_LINE.finditer(text):
+        if m.group(1) in counts:
+            counts[m.group(1)] += 1
+    return counts
+
+
+def sass(src: str, out: Path = None) -> Dict[str, int]:
+    """sass_counts of the built library of `src` (in `out`, by default the
+    current build)."""
+    lib = (out or BUILD_ROOT / source_hash()) / _lib_name(src)
+    proc = subprocess.run([find_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"cuobjdump -sass {lib} failed:\n{proc.stderr}")
+    return sass_counts(proc.stdout)
 
 
 def find_nvcc() -> str:
@@ -63,20 +104,22 @@ def find_nvcc() -> str:
         "toolkit is required to run them on the GPU")
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.iterdir()):
+    for p in sorted(csrc.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
             h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile every source not yet built for the current hash; returns
-    the build directory. Raises KernelBuildError on any failure."""
-    out = BUILD_ROOT / source_hash()
-    todo = [s for s in SOURCES if not (out / _lib_name(s)).exists()]
+def build(csrc: Path = CSRC, root: Path = BUILD_ROOT,
+          sources=SOURCES) -> Path:
+    """Compile every source of `csrc` not yet built for the current hash
+    into `root`/<hash>; returns that directory. Raises KernelBuildError on
+    any failure."""
+    out = root / source_hash(csrc)
+    todo = [s for s in sources if not (out / _lib_name(s)).exists()]
     if not todo:
         return out
     nvcc = find_nvcc()
@@ -84,8 +127,8 @@ def build() -> Path:
     procs = []
     for src in todo:
         tmp = out / f"{_lib_name(src)}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-o", str(tmp),
+               str(csrc / src)]
         procs.append((src, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -109,8 +152,14 @@ def kernel(name: str):
     fn = _loaded.get(name)
     if fn is not None:
         return fn
+    _loaded[name] = fn = load(name, build())
+    return fn
+
+
+def load(name: str, out: Path):
+    """The C entry point `name` from its library in build directory
+    `out`, with its argument types set."""
     src = name + ".cu"
-    out = build()
     try:
         lib = ctypes.CDLL(str(out / _lib_name(src)))
     except OSError as e:
@@ -118,14 +167,13 @@ def kernel(name: str):
     fn = getattr(lib, name)
     fn.argtypes = SIGNATURES[name]
     fn.restype = ctypes.c_int
-    _loaded[name] = fn
     return fn
 
 
-def build_logs() -> Dict[str, str]:
+def build_logs(out: Path = None) -> Dict[str, str]:
     """nvcc's output per source (registers, shared memory and spills from
-    -Xptxas -v) of the current build."""
-    out = BUILD_ROOT / source_hash()
+    -Xptxas -v) of build directory `out`, by default the current build."""
+    out = out or BUILD_ROOT / source_hash()
     return {s: (out / f"{s}.log").read_text()
             for s in SOURCES if (out / f"{s}.log").exists()}
 

@@ -1,4 +1,5 @@
-// K1 - flash attention forward for sm_90a.
+// K1 - flash attention forward for sm_90a (Hopper: TMA, wgmma, warp
+// specialisation).
 //
 // Replaces: the Pallas TPU kernel that ray_tpu/ops/attention.py:105-120
 // calls, jax/experimental/pallas/ops/tpu/flash_attention.py
@@ -19,197 +20,320 @@
 // bytes bound it by a little. Either way the work is the tensor cores'
 // and the design keeps them fed.
 //
-// Design: one block of four warps per (b, h, 64-row Q tile); the Q tile
-// stays in registers as mma A fragments, and a loop inside the block walks
-// the K/V tiles (64 rows) up to the diagonal, so tiles above it are never
-// loaded. K/V tiles are double-buffered in shared memory: cp.async brings
-// the next one in while the tensor cores work on this one. Fragments come
-// from shared memory by ldmatrix. S, P and the O accumulator never leave
-// registers. Blocks are issued heaviest (last Q tile) first to even out
-// the causal triangle. mma.sync on the tensor cores, not yet wgmma/TMA.
+// Design (FlashAttention-3's shape): a persistent grid of at most one
+// block of three warpgroups per SM, each block walking its 128-row Q
+// tiles (PairWork: pairs of a heavy and a light Q tile of one (b, h), so
+// that every block gets the same causal work). Warpgroup 0 is the
+// producer: after setmaxnreg.dec one of its threads loads each Q tile
+// into one of two buffers and streams the 128-row K and V tiles through a
+// two-stage ring by TMA, each slot with a "full" mbarrier (the TMA bytes
+// have landed) and an "empty" one (both consumers are done with it); K
+// and V have slots of their own, so S = Q K^T starts before V lands and a
+// K slot is refilled while P V still reads V, and the next Q tile's loads
+// run while the consumers finish and store this one. Warpgroups 1 and 2
+// are consumers with 240 registers each, 64 query rows each: S = Q K^T by
+// wgmma from shared memory (both operands K-major), the online softmax in
+// registers on the accumulator layout in log2 units, then O += P V by
+// wgmma with P as the register A operand (rounded to bf16) and V read
+// MN-major from the same swizzled tile. Each S = Q K^T goes to the tensor
+// cores together with the previous tile's O += P V, and the softmax of S
+// runs while that P V is in flight; the two consumers take turns to issue
+// their products (named barriers), so one's softmax also overlaps the
+// other's products. K/V tiles above the diagonal are never loaded and
+// only the tiles that hold the diagonal or the ragged end of T are
+// masked. Neighbouring blocks work on neighbouring (b, h), so the K/V
+// tiles they read come from L2.
 
-#include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace flash {
 
-constexpr int kFwdM = 64;  // Q rows per block
-constexpr int kFwdN = 64;  // K/V rows per inner step
+using namespace hopper;
+
+constexpr int kFwdM = 128;   // Q rows per tile (64 per consumer warpgroup)
+constexpr int kFwdN = 128;   // K/V rows per tile
+constexpr int kFwdStages = 2;
+constexpr int kFwdThreads = 384;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ o,
-           float* __restrict__ lse, int T, int H,
-           i64 qsb, i64 qst, i64 qsh, i64 ksb, i64 kst, i64 ksh,
-           i64 vsb, i64 vst, i64 vsh, float scale_log2, int causal) {
-  constexpr int P = Pitch<D>::value;
-  constexpr int KS = D / 16;      // 16-deep steps over D
-  constexpr int NT = kFwdN / 8;   // 8-wide column tiles of S
-  constexpr int DT = D / 8;       // 8-wide column tiles of O
-  constexpr int TILE = kFwdN * P; // elements of one K or V tile
+struct FwdLayout {
+  static constexpr int kTile = kFwdN * D * 2;  // bytes of one 128-row tile
+  static constexpr int kQ = 0;                              // two Q tiles
+  static constexpr int kK = 2 * kTile;                      // kFwdStages tiles
+  static constexpr int kV = kK + kFwdStages * kTile;        // kFwdStages tiles
+  static constexpr int kBars = kV + kFwdStages * kTile;
+  // q_full[2], q_empty[2], then k_full, v_full, k_empty, v_empty per stage
+  static constexpr int kBytes = kBars + (4 + 4 * kFwdStages) * 8;
+};
 
-  static_assert(kFwdM == kFwdN, "the Q tile borrows a K buffer");
-  extern __shared__ uint4 smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // two buffers
-  bf16* sV = sK + 2 * TILE;                      // two buffers
-  // Q is read once, into registers, so it borrows the second K buffer
-  // (at 68 KB a block, three blocks fit on an SM)
-  bf16* sQ = sK + TILE;
+// S = Q K^T (raw scores, 64 x 128 for one warpgroup) started on the
+// tensor cores as one wgmma group; both operands K-major.
+template <int D>
+__device__ __forceinline__ void fwd_scores(float (&sc)[kFwdN / 2], uint64_t dq, uint64_t dk) {
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k)
+    wgmma_ss_n128(sc, desc_at(dq, k_major_step(kFwdM, k)), desc_at(dk, k_major_step(kFwdN, k)),
+                  k > 0);
+  wgmma_commit();
+}
 
-  const int m_tile = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int m0 = m_tile * kFwdM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3;
-
-  const bf16* kb = k + b * ksb + h * ksh;
-  const bf16* vb = v + b * vsb + h * vsh;
-  const int n_end = causal ? min(T, m0 + kFwdM) : T;
-  const int n_tiles = (n_end + kFwdN - 1) / kFwdN;
-
-  load_tile_async<kFwdM, D>(sQ, q + b * qsb + h * qsh + m0 * qst, qst, T - m0);
-  load_tile_async<kFwdN, D>(sK, kb, kst, T);
-  load_tile_async<kFwdN, D>(sV, vb, vst, T);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[KS][4];
+// O += P V started as one wgmma group: P from registers, V MN-major.
+template <int D>
+__device__ __forceinline__ void fwd_pv(float (&acc)[D / 2], const uint32_t (&pa)[kFwdN / 16][4],
+                                       uint64_t dv) {
+  wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) ld_a_frag<P>(qf[ks], sQ, warp * 16, ks * 16, lane);
-  __syncthreads();  // sQ is free for the next K tile
-
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float row_max[2] = {-INFINITY, -INFINITY};
-  float row_sum[2] = {0.f, 0.f};  // this lane's share; summed over the quad at the end
-  const int row[2] = {m0 + warp * 16 + g, m0 + warp * 16 + g + 8};
-
-  for (int j = 0; j < n_tiles; ++j) {
-    // start the next K/V tile into the other buffer, then wait for this one
-    if (j + 1 < n_tiles) {
-      const int n1 = (j + 1) * kFwdN;
-      load_tile_async<kFwdN, D>(sK + ((j + 1) & 1) * TILE, kb + n1 * kst, kst, T - n1);
-      load_tile_async<kFwdN, D>(sV + ((j + 1) & 1) * TILE, vb + n1 * vst, vst, T - n1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* cK = sK + (j & 1) * TILE;
-    const bf16* cV = sV + (j & 1) * TILE;
-    const int n0 = j * kFwdN;
-
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t bf[4];
-        ld_b_frag_t<P>(bf, cK, nt * 8, ks * 16, lane);
-        mma_16816(s[nt], qf[ks], bf[0], bf[1]);
-        mma_16816(s[nt + 1], qf[ks], bf[2], bf[3]);
-      }
-
-    // scale into log2 units and mask
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + nt * 8 + 2 * c + (e & 1);
-        s[nt][e] = visible(row[e >> 1], col, T, causal) ? s[nt][e] * scale_log2 : -INFINITY;
-      }
-
-    // online softmax: new running max, rescale, exponentiate
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = row_max[r];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      mx = quad_max(mx);
-      // a row with nothing visible yet keeps max -inf; exponentiate
-      // against 0 there so that exp2(-inf - m) is 0 and never NaN
-      const float m_use = mx == -INFINITY ? 0.f : mx;
-      const float alpha = exp2f(row_max[r] - m_use);
-      row_max[r] = mx;
-      float part = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        s[nt][2 * r] = exp2f(s[nt][2 * r] - m_use);
-        s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - m_use);
-        part += s[nt][2 * r] + s[nt][2 * r + 1];
-      }
-      row_sum[r] = row_sum[r] * alpha + part;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        acc[dt][2 * r] *= alpha;
-        acc[dt][2 * r + 1] *= alpha;
-      }
-    }
-
-    // O += P V, P rounded to bf16
-#pragma unroll
-    for (int ks = 0; ks < kFwdN / 16; ++ks) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-      pa[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
-      pa[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
-      pa[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        uint32_t bf[4];
-        ld_b_frag<P>(bf, cV, ks * 16, dt * 8, lane);
-        mma_16816(acc[dt], pa, bf[0], bf[1]);
-        mma_16816(acc[dt + 1], pa, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+  for (int k = 0; k < kFwdN / 16; ++k) {
+    if constexpr (D == 128)
+      wgmma_rs_n128(acc, pa[k], desc_at(dv, mn_major_step(k)));
+    else
+      wgmma_rs_n64(acc, pa[k], desc_at(dv, mn_major_step(k)));
   }
+  wgmma_commit();
+}
 
-  // normalise and write O and lse
-  const i64 o_st = (i64)H * D;
-  bf16* ob = o + (i64)b * T * o_st + (i64)h * D;
+// One online-softmax step on the scores of the K/V tile at n0, in log2
+// units: masks the tile if it holds the diagonal or the ragged end of T,
+// updates the running max and sum, turns sc into P (f32) and gives each
+// row's rescale factor for O.
+__device__ __forceinline__ void fwd_softmax(float (&sc)[kFwdN / 2], float (&row_max)[2],
+                                            float (&row_sum)[2], float (&alpha)[2],
+                                            float scale_log2, int n0, const int (&row)[2], int c,
+                                            int T, int causal, int wg_row0) {
+  if (n0 + kFwdN > T || (causal && n0 + kFwdN - 1 > wg_row0)) {
+#pragma unroll
+    for (int i = 0; i < kFwdN / 2; ++i) {
+      const int col = n0 + 8 * (i >> 2) + 2 * c + (i & 1);
+      if (col >= T || (causal && col > row[(i >> 1) & 1])) sc[i] = -INFINITY;
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(row_sum[r]);
-    if (row[r] >= T) continue;
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    bf16* orow = ob + row[r] * o_st;
+    float mx = -INFINITY;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * c) =
-          pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
-    if (c == 0) lse[((i64)b * H + h) * T + row[r]] = (row_max[r] + log2f(l)) * kLn2;
+    for (int i = 0; i < kFwdN / 2; ++i)
+      if (((i >> 1) & 1) == r) mx = fmaxf(mx, sc[i]);
+    mx = fmaxf(row_max[r], quad_max(mx) * scale_log2);
+    // a row with nothing visible yet keeps max -inf; exponentiate
+    // against 0 there so that exp2(-inf - m) is 0 and never NaN
+    const float m_use = mx == -INFINITY ? 0.f : mx;
+    alpha[r] = fast_exp2(row_max[r] - m_use);
+    row_max[r] = mx;
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < kFwdN / 2; ++i)
+      if (((i >> 1) & 1) == r) {
+        sc[i] = fast_exp2(fmaf(sc[i], scale_log2, -m_use));
+        part += sc[i];
+      }
+    row_sum[r] = row_sum[r] * alpha[r] + part;
   }
 }
 
 template <int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+__global__ void __launch_bounds__(kFwdThreads, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+           float* __restrict__ lse, int T, int H, int n_bh, float scale_log2, int causal) {
+  using L = FwdLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_aligned(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_full = bars;
+  uint64_t* q_empty = bars + 2;
+  uint64_t* k_full = bars + 4;
+  uint64_t* v_full = k_full + kFwdStages;
+  uint64_t* k_empty = v_full + kFwdStages;
+  uint64_t* v_empty = k_empty + kFwdStages;
+  const int wg = threadIdx.x / 128;
+  // Q tiles, walked in pairs heaviest (last) first (PairWork)
+  const int n_m = (T + kFwdM - 1) / kFwdM;
+  auto kv_tiles = [&](int m0) {  // K/V tiles a Q tile at m0 reads
+    return ((causal ? min(T, m0 + kFwdM) : T) + kFwdN - 1) / kFwdN;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 8);
+      mbar_init(&v_empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load. Q tiles go to two
+    // buffers in turn and K/V tiles through the ring, counted over all of
+    // the block's Q tiles, so the next Q tile's loads start while the
+    // consumers still work on this one ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    int g = 0;  // K/V tiles loaded so far
+    int qi = 0;
+    for (PairWork w(n_m, n_bh); w.valid(); w.next(), ++qi) {
+      const int bh = w.bh(), b = bh / H, h = bh - b * H, m0 = (n_m - 1 - w.tile()) * kFwdM;
+      const int qs = qi & 1;
+      mbar_wait(&q_empty[qs], ((qi >> 1) & 1) ^ 1);
+      mbar_arrive_expect_tx(&q_full[qs], L::kTile);
+      tma_load_tile<D>(smem + L::kQ + qs * L::kTile, &tq, &q_full[qs], kFwdM, m0, h, b);
+      const int n_tiles = kv_tiles(m0);
+      for (int j = 0; j < n_tiles; ++j, ++g) {
+        const int s = g % kFwdStages;
+        const uint32_t parity = ((g / kFwdStages) & 1) ^ 1;
+        mbar_wait(&k_empty[s], parity);
+        mbar_arrive_expect_tx(&k_full[s], L::kTile);
+        tma_load_tile<D>(smem + L::kK + s * L::kTile, &tk, &k_full[s], kFwdN, j * kFwdN, h, b);
+        mbar_wait(&v_empty[s], parity);
+        mbar_arrive_expect_tx(&v_full[s], L::kTile);
+        tma_load_tile<D>(smem + L::kV + s * L::kTile, &tv, &v_full[s], kFwdN, j * kFwdN, h, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows each ----
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1;                       // consumer index, 0 or 1
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g8 = lane >> 2, c = lane & 3;
+
+  auto kv_tile = [&](int base, int g) { return smem + base + (g % kFwdStages) * L::kTile; };
+  auto parity = [](int g) { return (uint32_t)((g / kFwdStages) & 1); };
+  auto release = [&](uint64_t* empty) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty);
+  };
+  // The two consumers take turns to issue their wgmma groups (named
+  // barriers 1 and 2), so one's softmax runs while the other's products
+  // are on the tensor cores. Consumer 0 goes first; consumer 1 gives no
+  // turn after its last issue, so no arrival is left over.
+  auto my_turn = [&] { bar_sync(1 + cw, 256); };
+  auto your_turn = [&](bool last) {
+    if (!(last && cw == 1)) bar_arrive(2 - cw, 256);
+  };
+  if (cw == 1) bar_arrive(1, 256);
+
+  float acc[D / 2];
+  float row_max[2], row_sum[2], alpha[2];
+  float sc[kFwdN / 2];          // S, then P, of the newest K/V tile
+  uint32_t pa[kFwdN / 16][4];   // P rounded to bf16, the A operand of P V
+  int g = 0;  // K/V tiles consumed so far
+  int qi = 0;
+  for (PairWork w(n_m, n_bh); w.valid(); ++qi) {
+    const int bh = w.bh(), b = bh / H, h = bh - b * H, m0 = (n_m - 1 - w.tile()) * kFwdM;
+    w.next();
+    const bool last = !w.valid();  // the block's last Q tile
+    const int n_tiles = kv_tiles(m0);
+    const int qs = qi & 1;
+    const int wg_row0 = m0 + cw * 64;
+    const int row[2] = {wg_row0 + warp * 16 + g8, wg_row0 + warp * 16 + g8 + 8};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    row_max[0] = row_max[1] = -INFINITY;  // log2 units (scaled)
+    row_sum[0] = row_sum[1] = 0.f;  // this thread's share; summed over the quad at the end
+    const uint64_t desc_q = desc_k_major(smem + L::kQ + qs * L::kTile + cw * 64 * kRowBytes);
+
+    // Tile 0: S, softmax, P. Then for each later tile j, S_j = Q K_j^T
+    // and O += P_{j-1} V_{j-1} go to the tensor cores together, and the
+    // softmax of S_j runs while P V is in flight; O is rescaled once P V
+    // is done.
+    mbar_wait(&q_full[qs], (qi >> 1) & 1);
+    my_turn();
+    mbar_wait(&k_full[g % kFwdStages], parity(g));
+    fwd_scores<D>(sc, opaque(desc_q), opaque(desc_k_major(kv_tile(L::kK, g))));
+    your_turn(false);
+    wgmma_wait<0>();
+    reg_fence(sc);
+    release(&k_empty[g % kFwdStages]);
+    fwd_softmax(sc, row_max, row_sum, alpha, scale_log2, 0, row, c, T, causal, wg_row0);
+    acc_to_a<kFwdN / 16>(pa, sc);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int gj = g + j;
+      my_turn();
+      mbar_wait(&k_full[gj % kFwdStages], parity(gj));
+      fwd_scores<D>(sc, opaque(desc_q), opaque(desc_k_major(kv_tile(L::kK, gj))));
+      mbar_wait(&v_full[(gj - 1) % kFwdStages], parity(gj - 1));
+      fwd_pv<D>(acc, pa, opaque(desc_mn_major(kv_tile(L::kV, gj - 1), kFwdN)));
+      your_turn(false);
+      wgmma_wait<1>();  // S_j is done, P V may still run
+      reg_fence(sc);
+      release(&k_empty[gj % kFwdStages]);
+      fwd_softmax(sc, row_max, row_sum, alpha, scale_log2, j * kFwdN, row, c, T, causal, wg_row0);
+      wgmma_wait<0>();
+      reg_fence(acc);
+      reg_fence(pa);
+      release(&v_empty[(gj - 1) % kFwdStages]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      acc_to_a<kFwdN / 16>(pa, sc);
+    }
+    g += n_tiles;
+    my_turn();
+    mbar_wait(&v_full[(g - 1) % kFwdStages], parity(g - 1));
+    fwd_pv<D>(acc, pa, opaque(desc_mn_major(kv_tile(L::kV, g - 1), kFwdN)));
+    your_turn(last);
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(pa);
+    release(&v_empty[(g - 1) % kFwdStages]);
+    release(&q_empty[qs]);
+
+    // normalise and write O and lse; rows past T are never stored
+    const i64 o_st = (i64)H * D;
+    bf16* ob = o + (i64)b * T * o_st + (i64)h * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = quad_sum(row_sum[r]);
+      if (row[r] >= T) continue;
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      bf16* orow = ob + row[r] * o_st;
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 4) {
+        const int k = i + 2 * r;
+        *reinterpret_cast<uint32_t*>(orow + 8 * (i >> 2) + 2 * c) =
+            pack_bf16(acc[k] * inv, acc[k + 1] * inv);
+      }
+      if (c == 0) lse[(i64)bh * T + row[r]] = (row_max[r] + log2f(l)) * kLn2;
+    }
+  }
+}
+
+// static: internal linkage keeps the function-local static below private
+// to this library (as a template's it would otherwise be one symbol per
+// process, shared with any other build of this file loaded beside it)
+template <int D>
+static cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                        int B, int T, int H, const i64* qs, const i64* ks, const i64* vs,
                        float scale, int causal, cudaStream_t stream) {
-  constexpr int P = Pitch<D>::value;
-  const int smem = 4 * kFwdN * P * (int)sizeof(bf16);
+  CUtensorMap tq, tk, tv;
+  if (!encode_bthd(&tq, q, B, T, H, D, qs, kFwdM) || !encode_bthd(&tk, k, B, T, H, D, ks, kFwdN) ||
+      !encode_bthd(&tv, v, B, T, H, D, vs, kFwdN))
+    return cudaErrorInvalidValue;
+  const int smem = FwdLayout<D>::kBytes + 1024;  // + room to align to 1024
   // once per D and process, on the device current at the first launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((T + kFwdM - 1) / kFwdM, H, B);
-  fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
-      T, H, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-      scale * kLog2e, causal);
+  fwd_kernel<D><<<pair_grid((T + kFwdM - 1) / kFwdM, B * H), kFwdThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), T, H, B * H, scale * kLog2e,
+      causal);
   return cudaGetLastError();
 }
 
 }  // namespace flash
 
-// q, k, v: bf16 [B, T, H, D] with strides (batch, time, head) in elements
-// and a contiguous last dimension; o: bf16 [B, T, H, D] contiguous;
-// lse: f32 [B, H, T] contiguous. Returns the launch's cudaError_t.
+// q, k, v: bf16 [B, T, H, D] with strides (batch, time, head) in elements,
+// a contiguous last dimension and 16-byte aligned rows; o: bf16
+// [B, T, H, D] contiguous; lse: f32 [B, H, T] contiguous. Returns the
+// launch's cudaError_t (cudaErrorInvalidValue where a tensor map cannot be
+// encoded or D is not 64 or 128).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int B, int T, int H, int D,
                          long long qsb, long long qst, long long qsh,

@@ -135,3 +135,34 @@ def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
                            env=dict(env, PYTHONPATH=""))
     assert alone.returncode != 0
     assert '"ok": true' not in alone.stdout
+
+
+# a few lines of `cuobjdump -sass` of a Hopper kernel: predicated and
+# unpredicated instructions, uniform predicates, and the encoding comments
+SASS = """
+        /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;  /* 0x00000000000079f0 */
+                                                                                      /* 0x000fe20008000818 */
+        /*0210*/              @P0 SYNCS.ARRIVE.TRANS64.RED.A1T0 RZ, [UR4], RZ ;
+        /*0220*/                   UTMALDG.4D [UR8], [UR10] ;
+        /*0230*/             @!P0 BRA 0x1f0 ;
+        /*1a2b0*/           @!UPT SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R3+URZ], R4 ;
+        /*1a2c0*/                   HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR8].tnspB, R88 ;
+        /*0240*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0250*/                   LDSM.16.M88.4 R8, [R2] ;
+"""
+
+
+def test_sass_counts_read_cuobjdump_text():
+    assert _build.sass_counts(SASS) == {"HGMMA": 2, "UTMALDG": 1, "HMMA": 1,
+                                        "SYNCS": 2}
+    assert _build.sass_counts("") == dict.fromkeys(_build.SASS_OPS, 0)
+
+
+def test_sass_raises_without_cuobjdump(monkeypatch, tmp_path):
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    with pytest.raises(_build.KernelBuildError, match="cuobjdump not found"):
+        _build.sass("flash_fwd.cu", tmp_path)
