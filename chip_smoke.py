@@ -10,14 +10,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
      power limit; TF32 off so the f32 plain versions are full f32.
   2. build: compiles the flash-attention kernels from ops/csrc with nvcc;
      prints each library's registers, spills and SASS counts (cuobjdump)
-     and fails if the Hopper kernels (forward, dK/dV) spill or hold no
-     HGMMA (wgmma) or UTMALDG (TMA load).
+     and fails if a kernel holds no HGMMA (wgmma) or UTMALDG (TMA load),
+     holds HMMA (mma.sync), or spills.
   3. kernels: each kernel against its plain PyTorch version on the same
      bf16 inputs, at the GPT-2-125M shape [16, 1024, 6, 128] causal, a
      ragged T, a head_dim-64 case, a non-causal case and a T shorter than
-     one tile; then times kernel, plain version and, where one PyTorch
-     call computes the same function, that call (for the backward pair,
-     PyTorch's flash-attention backward, which gives dQ, dK and dV).
+     one tile, and dQ again at the main shape from DQ_SEEDS; then times
+     kernel, plain version and, where one PyTorch call computes the same
+     function, that call (for the backward pair, PyTorch's
+     flash-attention backward, which gives dQ, dK and dV).
   4. reference: a narrow model's loss and grads on the card (bf16, through
      the kernels) against the port's CPU path (f32, plain versions) from
      the same params.
@@ -49,16 +50,42 @@ import time
 # to each output element an error of random sign with a std of about
 # 2.3e-3 of its row's RMS, about 1.2e-2 at the largest of the ~12.6M
 # elements at the main shape; ATOL_ROW leaves room for that, and RTOL
-# (four unit roundoffs) for the bf16 output. A row's RMS is floored at
-# 1e-3 of the tensor's: dq's first query row is zero in exact arithmetic.
+# (four unit roundoffs) for the bf16 output.
+#
+# A row of dq that is zero in exact arithmetic has no RMS to scale from.
+# Query 0 under the causal mask sees key 0 alone, so P = 1 and
+# dP - di = dO_0 . V_0 - O_0 . dO_0 = 0 (O_0 = V_0): what kernel and plain
+# version give there is the f32 rounding of those two dot products. Each
+# is a sum of D products, rounded by at most gamma_D sum_d |terms| in any
+# order of summation (gamma_D = D u / (1 - D u), u = 2^-24: Higham,
+# Accuracy and Stability of Numerical Algorithms, 3.1). dS = P (dP - di)
+# carries that times P, and dQ = scale dS K carries it through K: in the
+# kernel and in the plain version alike, element d of row i of dq lies
+# within E_id of its exact value, and the two within 2 E_id of each
+# other, where
+#   E_id = scale gamma_D sum_j P_ij A_ij |K_jd|,
+#   A_ij = sum_e |dO_ie V_je| + sum_e |O_ie dO_ie|.
+# A row of dq is held to
+# max(rms(row), 2 max_d E_id / ATOL_ROW) in place of rms(row)
+# (dq_row_floor): a zero row may differ by its rounding bound, and a row
+# whose RMS is above that floor is held exactly as before (the rows
+# below it are query row 0 and the rare row whose P sits almost wholly on
+# one key, where dP - di nearly cancels as well). o, dk and dv have no
+# row that is zero in exact arithmetic; their rows' RMS is floored at
+# 1e-3 of the tensor's (under the causal mask the last key rows of dk and
+# dv, made of a few small P, can lie below that).
 RTOL = 1.6e-2
 ATOL_ROW = 3e-2
+U_F32 = 2.0 ** -24   # unit roundoff of f32
 LSE_TOL = 1e-3       # absolute, on lse (f32 throughout)
 WARMUP, TIMED = 3, 10   # training steps, as bench.py warms up and times
 BATCH = 16
 SEED = 0
-# the kernels rebuilt for Hopper (TMA, wgmma); flash_bwd_dq.cu is not yet
-HOPPER_SOURCES = ("flash_fwd.cu", "flash_bwd_dkv.cu")
+# the kernels' sources, each built for Hopper (TMA, wgmma), which the
+# build phase checks in their SASS
+HOPPER_SOURCES = ("flash_fwd.cu", "flash_bwd_dkv.cu", "flash_bwd_dq.cu")
+# seeds of the extra dQ checks at the main shape
+DQ_SEEDS = tuple(range(1, 9))
 # each kernel's source and the TPU kernel it replaces
 KERNEL_SOURCES = {
     "flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -93,13 +120,33 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def excess(a, ref):
-    """Worst |a - ref| / (RTOL |ref| + ATOL_ROW rms_row(ref)) over all
-    elements: at most 1 passes, NaN fails."""
+def excess(a, ref, floor=None):
+    """Worst |a - ref| / (RTOL |ref| + ATOL_ROW max(rms_row(ref), floor))
+    over all elements, `floor` being a tensor of one least RMS per row
+    (last dimension 1) or, by default, 1e-3 of the tensor's RMS: at most 1
+    passes, NaN fails."""
     a, ref = a.float(), ref.float()
-    rms = ref.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(
-        1e-3 * ref.pow(2).mean().sqrt().item())
+    rms = ref.pow(2).mean(-1, keepdim=True).sqrt()
+    if floor is None:
+        rms = rms.clamp_min(1e-3 * ref.pow(2).mean().sqrt().item())
+    else:
+        rms = rms.maximum(floor)
     return ((a - ref).abs() / (RTOL * ref.abs() + ATOL_ROW * rms)).max().item()
+
+
+def dq_row_floor(torch, fa, q, k, v, do, o, lse, scale, causal):
+    """2 max_d E_id / ATOL_ROW per row of dq (see the note at RTOL): the
+    f32 rounding bound of dP - di carried through scale K, for kernel and
+    plain version both. q, k, v, do, o f32 [B, T, H, D], lse f32
+    [B, H, T]; returns [B, T, H, 1]."""
+    d = q.shape[-1]
+    gamma = d * U_F32 / (1 - d * U_F32)
+    p = fa._probs(q, k, lse, scale, causal)                    # [B,H,T,T]
+    dp_abs = torch.einsum("bqhd,bkhd->bhqk", do.abs(), v.abs())
+    di_abs = (o.abs() * do.abs()).sum(-1).transpose(1, 2)      # [B,H,T]
+    bound = torch.einsum("bhqk,bkhd->bqhd", p * (dp_abs + di_abs[..., None]),
+                         k.abs())
+    return bound.amax(-1, keepdim=True) * (2 * scale * gamma / ATOL_ROW)
 
 
 def check_kernels(torch, fa, b, t, h, d, gen, qk_views=True, causal=True,
@@ -134,24 +181,30 @@ def check_kernels(torch, fa, b, t, h, d, gen, qk_views=True, causal=True,
     torch.cuda.synchronize()
     dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*f32, lse_ref, di, scale, causal)
     dq_ref = fa.flash_bwd_dq_ref(*f32, lse_ref, di, scale, causal)
+    dq_floor = dq_row_floor(torch, fa, *f32, o_ref, lse_ref, scale, causal)
     del f32
-    outs = {"flash_fwd": {"o": (o, o_ref)},
-            "flash_bwd_dkv": {"dk": (dk, dk_ref), "dv": (dv, dv_ref)},
-            "flash_bwd_dq": {"dq": (dq, dq_ref)}}
+    # (output, plain output, row floor or None for the default)
+    outs = {"flash_fwd": {"o": (o, o_ref, None)},
+            "flash_bwd_dkv": {"dk": (dk, dk_ref, None),
+                              "dv": (dv, dv_ref, None)},
+            "flash_bwd_dq": {"dq": (dq, dq_ref, dq_floor)}}
     outs = {n: outs[n] for n in names}
     lse_err = ((lse - lse_ref).abs().max().item() if "flash_fwd" in names
                else 0.0)
     abs_errs, worst, line = {}, {}, []
     for name, pairs in outs.items():
-        for out, (a, r) in pairs.items():
+        for out, (a, r, floor) in pairs.items():
             if not torch.isfinite(a.float()).all().item():
                 raise AssertionError(f"non-finite {out} at {(b, t, h, d)}")
             err = (a.float() - r).abs().max().item()
             abs_errs[name] = max(abs_errs.get(name, 0.0), err)
-            worst[out] = excess(a, r)
+            worst[out] = excess(a, r, floor)
             line.append(f"{out} max|err| {err:.3e} (max|plain| "
                         f"{r.abs().max().item():.3e}), excess "
                         f"{worst[out]:.3f}")
+            if floor is not None:   # query row 0 alone
+                row0 = excess(a[:, :1], r[:, :1], floor[:, :1])
+                line[-1] += f" (row 0: {row0:.3f})"
     layout = "views" if qk_views else "contiguous"
     mode = "causal" if causal else "non-causal"
     print(f"  [{b},{t},{h},{d}] {mode}, q/k {layout}: " + "; ".join(line)
@@ -271,10 +324,11 @@ def main(argv=None) -> int:
             used, spills[src], sass[src] = build_report(_build, log, src)
             print(f"  {src}: " + "; ".join(used) + f"; SASS {sass[src]}",
                   flush=True)
-            if src in HOPPER_SOURCES and not (sass[src]["HGMMA"]
-                                              and sass[src]["UTMALDG"]):
-                raise AssertionError(f"{src} must use wgmma and TMA: SASS "
-                                     f"{sass[src]}")
+            if src in HOPPER_SOURCES and not (
+                    sass[src]["HGMMA"] and sass[src]["UTMALDG"]
+                    and not sass[src]["HMMA"]):
+                raise AssertionError(f"{src} must use wgmma and TMA, and no "
+                                     f"mma.sync: SASS {sass[src]}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = {}
@@ -288,6 +342,13 @@ def main(argv=None) -> int:
         # the causal flag off (ragged T), and T inside one 128-row tile
         check_kernels(torch, fa, 2, 1000, 3, 128, gen, causal=False)
         check_kernels(torch, fa, 2, 100, 3, 128, gen)
+        # dQ at the main shape from more seeds: its query row 0 is zero in
+        # exact arithmetic and held to its rounding bound
+        for seed in DQ_SEEDS:
+            print(f"  seed {seed}:", end="")
+            check_kernels(torch, fa, b, t, h, d,
+                          torch.Generator(device="cuda").manual_seed(seed),
+                          qk_views=False, names=("flash_bwd_dq",))
         scale = d ** -0.5
         runs = {
             "flash_fwd": (lambda: fa._flash_fwd_cuda(q, k, v, scale, True),

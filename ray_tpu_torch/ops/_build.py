@@ -7,9 +7,9 @@ seconds). The libraries go to ``ray_tpu_torch/_build/<hash>/``, keyed on a
 hash of the sources and the flags, and are reused while that hash holds.
 A build happens at the first call of a kernel, never at import.
 
-``flash_fwd.cu`` and ``flash_bwd_dkv.cu`` include ``hopper_common.cuh``
-(TMA, mbarriers, wgmma); it looks up libcuda's tensor-map encoder through
-the CUDA runtime, so no link flag beyond nvcc's defaults is needed.
+Every source includes ``hopper_common.cuh`` (TMA, mbarriers, wgmma); it
+looks up libcuda's tensor-map encoder through the CUDA runtime, so no link
+flag beyond nvcc's defaults is needed.
 ``sass_counts`` reads ``cuobjdump -sass`` of a built library, from the same
 toolkit as nvcc, to show which instructions a kernel was compiled to.
 """

@@ -1,4 +1,5 @@
-// K3 - flash attention backward, dQ, for sm_90a.
+// K3 - flash attention backward, dQ, for sm_90a (Hopper: TMA, wgmma,
+// warp specialisation).
 //
 // Replaces: jax/experimental/pallas/ops/tpu/flash_attention.py
 // _flash_attention_bwd_dq (:1287), pl.pallas_call at :1456, body
@@ -17,179 +18,306 @@
 // products are 38.7 GFLOP over the lower triangle (39 us at 989 TFLOP/s)
 // against 127 MB of q, k, v, dO, lse, di and dQ (38 us at 3.35 TB/s).
 //
-// Design: one block of four warps per (b, h, 64-row Q tile), which owns
-// its dQ rows outright, so no atomics and the result is deterministic. A
-// loop inside the block walks the K/V tiles up to the diagonal, double-
-// buffered in shared memory (cp.async brings the next while this one is
-// used). Q, dO, lse and di of the tile stay in shared memory; fragments
-// come by ldmatrix; S, P, dP, dS and the dQ accumulator stay in
-// registers. Heaviest tiles are issued first.
+// Design (the forward's shape, turned to dQ): a persistent grid of at
+// most one block of three warpgroups per SM, each block walking its
+// 128-row Q tiles (PairWork: pairs of a heavy and a light Q tile of one
+// (b, h), so that every block gets the same causal work). A block owns
+// the dQ rows of its Q tile outright: no atomics, and the result is
+// deterministic. Warpgroup 0 is the producer: one of its threads loads
+// each Q tile, its dO tile and their lse and di slices into one of
+// kDqQBufs buffers, and streams the 64-row K and V tiles through a ring
+// of kDqStages slots, all by TMA; K and V have "full" mbarriers of their
+// own (S = Q K^T starts before V lands) and share an "empty" one that the
+// eight consumer warps arrive on once dQ += dS K has read K. The last dP
+// of a Q tile frees its buffer. Warpgroups 1 and 2 are
+// consumers with 240 registers each, 64 query rows each, and keep their
+// dQ accumulator (D / 2 f32 a thread) in registers for the whole walk
+// over K/V. For each K/V tile: S = Q K^T and dP = dO V^T by wgmma from
+// shared memory (both operands K-major) as two groups, so that P =
+// exp2(S scale log2 e - lse log2 e) is computed while dP is in flight;
+// dS = P (dP - di) in registers; dQ += dS K by wgmma with dS rounded to
+// bf16 as the register A operand and K read MN-major from the same
+// swizzled tile that S read K-major. That product stays in flight while
+// the next tile's S and dP are issued. dQ is scaled once, at the end, and
+// stored straight from registers (a quad of threads writes 16 contiguous
+// bytes of a row): a Q tile is stored once per walk over its K/V tiles,
+// and a staging tile for a TMA store would take the shared memory of the
+// ring. Causal: K/V tiles above the diagonal are never loaded, the
+// warpgroup of the upper 64 rows skips the tile wholly above them, and
+// only the tiles across the diagonal or the ragged end of T are masked.
+// Neighbouring blocks work on neighbouring (b, h), so the K/V tiles they
+// read come from L2.
 
-#include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace flash {
 
-constexpr int kDqM = 64;  // Q rows per block
-constexpr int kDqN = 64;  // K/V rows per inner step
+using namespace hopper;
+
+constexpr int kDqM = 128;   // Q rows per tile (64 per consumer warpgroup)
+constexpr int kDqN = 64;    // K/V rows per tile
+constexpr int kDqStages = 2;   // K/V ring
+constexpr int kDqQBufs = 2;    // Q/dO/lse/di buffers
+constexpr int kDqThreads = 384;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ di,
-          bf16* __restrict__ dq, int T, int H,
-          i64 qsb, i64 qst, i64 qsh, i64 ksb, i64 kst, i64 ksh,
-          i64 vsb, i64 vst, i64 vsh, i64 dsb, i64 dst, i64 dsh,
-          float scale, int causal) {
-  constexpr int P = Pitch<D>::value;
-  constexpr int KS = D / 16;
-  constexpr int NT = kDqN / 8;
-  constexpr int DT = D / 8;
-  const float scale_log2 = scale * kLog2e;
+struct DqLayout {
+  static constexpr int kQTile = kDqM * D * 2;  // bytes of one Q (or dO) tile
+  static constexpr int kKV = kDqN * D * 2;     // bytes of one K (or V) tile
+  static constexpr int kQ = 0;                              // kDqQBufs Q tiles
+  static constexpr int kDO = kDqQBufs * kQTile;             // kDqQBufs dO tiles
+  static constexpr int kK = 2 * kDqQBufs * kQTile;          // kDqStages K tiles
+  static constexpr int kV = kK + kDqStages * kKV;           // kDqStages V tiles
+  static constexpr int kLse = kV + kDqStages * kKV;         // f32 [kDqQBufs][kDqM]
+  static constexpr int kDi = kLse + kDqQBufs * kDqM * 4;    // f32 [kDqQBufs][kDqM]
+  static constexpr int kBars = kDi + kDqQBufs * kDqM * 4;
+  // q_full, q_empty per Q buffer, then k_full, v_full, kv_empty per stage
+  static constexpr int kBytes = kBars + (2 * kDqQBufs + 3 * kDqStages) * 8;
+  static_assert(kBytes + 1024 <= 232448, "more shared memory than a block has");
+};
 
-  constexpr int TILE = kDqN * P;  // elements of one K or V tile
-
-  extern __shared__ uint4 smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sDO = sQ + kDqM * P;
-  bf16* sK = sDO + kDqM * P;      // two buffers
-  bf16* sV = sK + 2 * TILE;       // two buffers
-  float* sLse = reinterpret_cast<float*>(sV + 2 * TILE);  // in log2 units
-  float* sDi = sLse + kDqM;
-
-  const int m_tile = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int m0 = m_tile * kDqM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const i64 bh = (i64)b * H + h;
-
-  const bf16* kb = k + b * ksb + h * ksh;
-  const bf16* vb = v + b * vsb + h * vsh;
-  const int n_end = causal ? min(T, m0 + kDqM) : T;
-  const int n_tiles = (n_end + kDqN - 1) / kDqN;
-  load_tile_async<kDqM, D>(sQ, q + b * qsb + h * qsh + m0 * qst, qst, T - m0);
-  load_tile_async<kDqM, D>(sDO, dout + b * dsb + h * dsh + m0 * dst, dst, T - m0);
-  load_tile_async<kDqN, D>(sK, kb, kst, T);
-  load_tile_async<kDqN, D>(sV, vb, vst, T);
-  cp_async_commit();
-  load_vec<kDqM>(sLse, lse + bh * T + m0, T - m0, kLog2e);
-  load_vec<kDqM>(sDi, di + bh * T + m0, T - m0, 1.f);
-
-  const int lr[2] = {warp * 16 + g, warp * 16 + g + 8};  // rows within the tile
-  const int row[2] = {m0 + lr[0], m0 + lr[1]};
-
-  float acc[DT][4];
+// acc = A B^T (64 x 64 for one warpgroup) started on the tensor cores as
+// one wgmma group; A (Q or dO, 128-row boxes) and B (K or V, 64-row boxes)
+// both K-major.
+template <int D>
+__device__ __forceinline__ void dq_scores(float (&acc)[kDqN / 2], uint64_t da, uint64_t db) {
+  wgmma_fence();
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  for (int k = 0; k < D / 16; ++k)
+    wgmma_ss_n64(acc, desc_at(da, k_major_step(kDqM, k)), desc_at(db, k_major_step(kDqN, k)),
+                 k > 0);
+  wgmma_commit();
+}
 
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      const int n1 = (j + 1) * kDqN;
-      load_tile_async<kDqN, D>(sK + ((j + 1) & 1) * TILE, kb + n1 * kst, kst, T - n1);
-      load_tile_async<kDqN, D>(sV + ((j + 1) & 1) * TILE, vb + n1 * vst, vst, T - n1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* cK = sK + (j & 1) * TILE;
-    const bf16* cV = sV + (j & 1) * TILE;
-    const int n0 = j * kDqN;
-
-    // S = Q K^T and dP = dO V^T
-    float s[NT][4], dp[NT][4];
+// dQ += dS K started as one wgmma group: dS from registers, K MN-major.
+template <int D>
+__device__ __forceinline__ void dq_update(float (&acc)[D / 2], const uint32_t (&sa)[kDqN / 16][4],
+                                          uint64_t dk) {
+  wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qa[4], da[4];
-      ld_a_frag<P>(qa, sQ, warp * 16, ks * 16, lane);
-      ld_a_frag<P>(da, sDO, warp * 16, ks * 16, lane);
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t bf[4];
-        ld_b_frag_t<P>(bf, cK, nt * 8, ks * 16, lane);
-        mma_16816(s[nt], qa, bf[0], bf[1]);
-        mma_16816(s[nt + 1], qa, bf[2], bf[3]);
-        ld_b_frag_t<P>(bf, cV, nt * 8, ks * 16, lane);
-        mma_16816(dp[nt], da, bf[0], bf[1]);
-        mma_16816(dp[nt + 1], da, bf[2], bf[3]);
-      }
-    }
-
-    // P = exp(S - lse), dS = P (dP - di); masked entries are 0
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = n0 + nt * 8 + 2 * c + (e & 1);
-        const float p = visible(row[r], col, T, causal)
-                            ? exp2f(s[nt][e] * scale_log2 - sLse[lr[r]]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - sDi[lr[r]]);
-      }
-
-    // dQ += dS K, dS rounded to bf16
-#pragma unroll
-    for (int ks = 0; ks < kDqN / 16; ++ks) {
-      uint32_t da[4];
-      da[0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-      da[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
-      da[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
-      da[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        uint32_t bf[4];
-        ld_b_frag<P>(bf, cK, ks * 16, dt * 8, lane);
-        mma_16816(acc[dt], da, bf[0], bf[1]);
-        mma_16816(acc[dt + 1], da, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+  for (int k = 0; k < kDqN / 16; ++k) {
+    if constexpr (D == 128)
+      wgmma_rs_n128(acc, sa[k], desc_at(dk, mn_major_step(k)));
+    else
+      wgmma_rs_n64(acc, sa[k], desc_at(dk, mn_major_step(k)));
   }
-
-  const i64 o_st = (i64)H * D;
-  bf16* ob = dq + (i64)b * T * o_st + (i64)h * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= T) continue;
-    bf16* orow = ob + row[r] * o_st;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * c) =
-          pack_bf16(acc[dt][2 * r] * scale, acc[dt][2 * r + 1] * scale);
-  }
+  wgmma_commit();
 }
 
 template <int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* di, void* dq, int B, int T, int H,
-                      const i64* qs, const i64* ks, const i64* vs, const i64* ds,
-                      float scale, int causal, cudaStream_t stream) {
-  constexpr int P = Pitch<D>::value;
-  const int smem = (2 * kDqM + 4 * kDqN) * P * (int)sizeof(bf16) + 2 * kDqM * (int)sizeof(float);
+__global__ void __launch_bounds__(kDqThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+          const __grid_constant__ CUtensorMap tlse, const __grid_constant__ CUtensorMap tdi,
+          bf16* __restrict__ dq, int T, int H, int n_bh, float scale, int causal) {
+  using L = DqLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_aligned(smem_raw);
+  float* sLse = reinterpret_cast<float*>(smem + L::kLse);
+  float* sDi = reinterpret_cast<float*>(smem + L::kDi);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_full = bars;
+  uint64_t* q_empty = bars + kDqQBufs;
+  uint64_t* k_full = bars + 2 * kDqQBufs;
+  uint64_t* v_full = k_full + kDqStages;
+  uint64_t* kv_empty = v_full + kDqStages;
+  const int wg = threadIdx.x / 128;
+  // Q tiles, walked in pairs heaviest (last) first (PairWork)
+  const int n_m = (T + kDqM - 1) / kDqM;
+  auto kv_tiles = [&](int m0) {  // K/V tiles a Q tile at m0 reads
+    return ((causal ? min(T, m0 + kDqM) : T) + kDqN - 1) / kDqN;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kDqQBufs; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&kv_empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load. Q tiles go to
+    // their buffers in turn and K/V tiles through the ring, counted over
+    // all of the block's Q tiles, so the next Q tile's loads start while
+    // the consumers still work on this one ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    int g = 0;  // K/V tiles loaded so far
+    int qi = 0;
+    for (PairWork w(n_m, n_bh); w.valid(); w.next(), ++qi) {
+      const int bh = w.bh(), b = bh / H, h = bh - b * H, m0 = (n_m - 1 - w.tile()) * kDqM;
+      const int qs = qi % kDqQBufs;
+      mbar_wait(&q_empty[qs], ((qi / kDqQBufs) & 1) ^ 1);
+      mbar_arrive_expect_tx(&q_full[qs], 2 * L::kQTile + 2 * kDqM * 4);
+      tma_load_tile<D>(smem + L::kQ + qs * L::kQTile, &tq, &q_full[qs], kDqM, m0, h, b);
+      tma_load_tile<D>(smem + L::kDO + qs * L::kQTile, &tdo, &q_full[qs], kDqM, m0, h, b);
+      // lse and di of the tile's rows, from the flat [B * H * T] vectors:
+      // rows past T read the next (b, h)'s values or zeros, and are never
+      // stored
+      tma_load_1d(sLse + qs * kDqM, &tlse, &q_full[qs], bh * T + m0);
+      tma_load_1d(sDi + qs * kDqM, &tdi, &q_full[qs], bh * T + m0);
+      const int n_tiles = kv_tiles(m0);
+      for (int j = 0; j < n_tiles; ++j, ++g) {
+        const int s = g % kDqStages;
+        mbar_wait(&kv_empty[s], ((g / kDqStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&k_full[s], L::kKV);
+        tma_load_tile<D>(smem + L::kK + s * L::kKV, &tk, &k_full[s], kDqN, j * kDqN, h, b);
+        mbar_arrive_expect_tx(&v_full[s], L::kKV);
+        tma_load_tile<D>(smem + L::kV + s * L::kKV, &tv, &v_full[s], kDqN, j * kDqN, h, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows each ----
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1;                       // consumer index, 0 or 1
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g8 = lane >> 2, c = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  auto parity = [](int g) { return (uint32_t)((g / kDqStages) & 1); };
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  float acc[D / 2];
+  float sc[kDqN / 2];            // S, then P, of the K/V tile
+  float dp[kDqN / 2];            // dP, then dS
+  uint32_t sa[kDqN / 16][4];     // dS rounded to bf16, the A operand of dS K
+  int g = 0;  // K/V tiles consumed so far
+  int qi = 0;
+  for (PairWork w(n_m, n_bh); w.valid(); w.next(), ++qi) {
+    const int bh = w.bh(), b = bh / H, h = bh - b * H, m0 = (n_m - 1 - w.tile()) * kDqM;
+    const int n_tiles = kv_tiles(m0);
+    const int qs = qi % kDqQBufs;
+    const int wg_row0 = m0 + cw * 64;
+    // causal: the tiles after these lie wholly above this warpgroup's rows
+    const int n_mine = causal ? min(n_tiles, (wg_row0 + 64 + kDqN - 1) / kDqN) : n_tiles;
+    const int lr[2] = {cw * 64 + warp * 16 + g8, cw * 64 + warp * 16 + g8 + 8};
+    const int row[2] = {m0 + lr[0], m0 + lr[1]};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const uint64_t desc_q = desc_k_major(smem + L::kQ + qs * L::kQTile + cw * 64 * kRowBytes);
+    const uint64_t desc_do = desc_k_major(smem + L::kDO + qs * L::kQTile + cw * 64 * kRowBytes);
+    mbar_wait(&q_full[qs], (qi / kDqQBufs) & 1);
+    float lse_l2[2], di[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse_l2[r] = sLse[qs * kDqM + lr[r]] * kLog2e;
+      di[r] = sDi[qs * kDqM + lr[r]];
+    }
+
+    for (int j = 0; j < n_mine; ++j) {
+      const int gj = g + j, s = gj % kDqStages;
+      const uint8_t* sK = smem + L::kK + s * L::kKV;
+      const uint8_t* sV = smem + L::kV + s * L::kKV;
+      // S = Q K^T and dP = dO V^T as two groups, behind dQ += dS K of the
+      // previous tile
+      mbar_wait(&k_full[s], parity(gj));
+      dq_scores<D>(sc, opaque(desc_q), opaque(desc_k_major(sK)));
+      mbar_wait(&v_full[s], parity(gj));
+      dq_scores<D>(dp, opaque(desc_do), opaque(desc_k_major(sV)));
+      if (j > 0) {
+        wgmma_wait<2>();  // the previous tile's dS K is done: its K slot is free
+        reg_fence(acc);
+        reg_fence(sa);
+        release(&kv_empty[(gj - 1) % kDqStages]);
+      }
+      wgmma_wait<1>();  // S is done, dP may still run
+      reg_fence(sc);
+
+      // P = exp2(S scale log2 e - lse log2 e), 0 where masked (every key
+      // past T among them)
+      const int n0 = j * kDqN;
+      const bool mask = n0 + kDqN > T || (causal && n0 + kDqN - 1 > wg_row0);
+#pragma unroll
+      for (int i = 0; i < kDqN / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        const int col = n0 + 8 * (i >> 2) + 2 * c + (i & 1);
+        float p = fast_exp2(fmaf(sc[i], scale_log2, -lse_l2[r]));
+        if (mask && (col >= T || (causal && col > row[r]))) p = 0.f;
+        sc[i] = p;
+      }
+      wgmma_wait<0>();
+      reg_fence(dp);
+      // the last tile's dP has read Q and dO: their buffer may be refilled
+      if (j == n_mine - 1) release(&q_empty[qs]);
+
+      // dS = P (dP - di), then dQ += dS K (dS rounded to bf16, K MN-major)
+#pragma unroll
+      for (int i = 0; i < kDqN / 2; ++i) dp[i] = sc[i] * (dp[i] - di[(i >> 1) & 1]);
+      acc_to_a<kDqN / 16>(sa, dp);
+      dq_update<D>(acc, sa, opaque(desc_mn_major(sK, kDqN)));
+    }
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(sa);
+    release(&kv_empty[(g + n_mine - 1) % kDqStages]);
+
+    // write dQ (scaled); rows past T are never stored
+    const i64 o_st = (i64)H * D;
+    bf16* ob = dq + (i64)b * T * o_st + (i64)h * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= T) continue;
+      bf16* orow = ob + row[r] * o_st;
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 4) {
+        const int k = i + 2 * r;
+        *reinterpret_cast<uint32_t*>(orow + 8 * (i >> 2) + 2 * c) =
+            pack_bf16(acc[k] * scale, acc[k + 1] * scale);
+      }
+    }
+    // the tiles this warpgroup skips: released once they have landed, so
+    // that these arrivals count toward their own phase of the slot's
+    // barrier and not toward the phase of the tile before them there,
+    // which the other warpgroup may still be reading
+    for (int j = n_mine; j < n_tiles; ++j) {
+      mbar_wait(&k_full[(g + j) % kDqStages], parity(g + j));
+      release(&kv_empty[(g + j) % kDqStages]);
+    }
+    g += n_tiles;
+  }
+}
+
+// static: internal linkage keeps the function-local static below private
+// to this library (as a template's it would otherwise be one symbol per
+// process, shared with any other build of this file loaded beside it)
+template <int D>
+static cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* di, void* dq, int B, int T, int H,
+                             const i64* qs, const i64* ks, const i64* vs, const i64* ds,
+                             float scale, int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo, tlse, tdi;
+  if (!encode_bthd(&tq, q, B, T, H, D, qs, kDqM) || !encode_bthd(&tk, k, B, T, H, D, ks, kDqN) ||
+      !encode_bthd(&tv, v, B, T, H, D, vs, kDqN) || !encode_bthd(&tdo, dout, B, T, H, D, ds, kDqM) ||
+      !encode_f32_vector(&tlse, lse, (i64)B * H * T, kDqM) ||
+      !encode_f32_vector(&tdi, di, (i64)B * H * T, kDqM))
+    return cudaErrorInvalidValue;
+  const int smem = DqLayout<D>::kBytes + 1024;  // + room to align to 1024
   // once per D and process, on the device current at the first launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((T + kDqM - 1) / kDqM, H, B);
-  dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<bf16*>(dq), T, H,
-      qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], ds[0], ds[1], ds[2],
-      scale, causal);
+  dq_kernel<D><<<pair_grid((T + kDqM - 1) / kDqM, B * H), kDqThreads, smem, stream>>>(
+      tq, tk, tv, tdo, tlse, tdi, static_cast<bf16*>(dq), T, H, B * H, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace flash
 
 // q, k, v, dout: bf16 [B, T, H, D], strided as in flash_fwd; lse, di: f32
-// [B, H, T] contiguous; dq: bf16 [B, T, H, D] contiguous.
+// [B, H, T] contiguous; dq: bf16 [B, T, H, D] contiguous. Returns the
+// launch's cudaError_t (cudaErrorInvalidValue where a tensor map cannot be
+// encoded or D is not 64 or 128).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* di, void* dq,
                             int B, int T, int H, int D,
@@ -202,8 +330,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   const long long vs[3] = {vsb, vst, vsh}, ds[3] = {dsb, dst, dsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128)
-    return flash::launch_dq<128>(q, k, v, dout, lse, di, dq, B, T, H, qs, ks, vs, ds, scale, causal, st);
+    return flash::launch_dq<128>(q, k, v, dout, lse, di, dq, B, T, H, qs, ks, vs, ds, scale,
+                                 causal, st);
   if (D == 64)
-    return flash::launch_dq<64>(q, k, v, dout, lse, di, dq, B, T, H, qs, ks, vs, ds, scale, causal, st);
+    return flash::launch_dq<64>(q, k, v, dout, lse, di, dq, B, T, H, qs, ks, vs, ds, scale,
+                                causal, st);
   return cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
-// Hopper pieces shared by the flash-attention forward (flash_fwd.cu) and
-// dK/dV (flash_bwd_dkv.cu) kernels, sm_90a only: TMA tensor maps and
-// loads, mbarriers, wgmma and its shared-memory descriptors, setmaxnreg.
+// Hopper pieces shared by the three flash-attention kernels, forward
+// (flash_fwd.cu), dK/dV (flash_bwd_dkv.cu) and dQ (flash_bwd_dq.cu),
+// sm_90a only: TMA tensor maps and loads, mbarriers, wgmma and its
+// shared-memory descriptors, setmaxnreg.
 //
 // Tensor maps. cuTensorMapEncodeTiled lives in libcuda. It is looked up
 // through the runtime's cudaGetDriverEntryPoint(ByVersion), so the
@@ -44,9 +45,9 @@
 // fragment of the k-th 16-deep step: a[0] = (d[8k], d[8k+1]),
 // a[1] = (d[8k+2], d[8k+3]), a[2] = (d[8k+4], d[8k+5]),
 // a[3] = (d[8k+6], d[8k+7]) (acc_to_a below). That is how P and dS go from
-// one product into the next without touching shared memory. These are
-// the same per-warp layouts as mma.sync.m16n8k16's C and A fragments
-// (flash_common.cuh), stacked over the warpgroup's four warps.
+// one product into the next without touching shared memory. Per warp
+// these are mma.sync.m16n8k16's C and A fragment layouts, stacked over
+// the warpgroup's four warps.
 
 #pragma once
 

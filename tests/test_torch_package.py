@@ -4,6 +4,7 @@ falls back to the plain version, and its build says so when nvcc is
 missing."""
 
 import ast
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -120,6 +121,22 @@ def test_build_hash_follows_the_sources():
     assert len(h) == 16 and h == _build.source_hash()
     assert set(_build.SOURCES) <= {p.name for p in _build.CSRC.iterdir()}
     assert set(_build.SIGNATURES) == {s[:-3] for s in _build.SOURCES}
+
+
+def test_every_kernel_is_a_hopper_kernel_under_the_sass_gate():
+    """Every source the build compiles includes hopper_common.cuh and is
+    one chip_smoke.py's build phase holds to HGMMA and UTMALDG (and no
+    HMMA)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert set(_build.SOURCES) <= set(chip_smoke.HOPPER_SOURCES)
+    for src in _build.SOURCES:
+        text = (_build.CSRC / src).read_text()
+        assert '#include "hopper_common.cuh"' in text, src
+    headers = {p.name for p in _build.CSRC.iterdir() if p.suffix == ".cuh"}
+    assert headers == {"hopper_common.cuh"}
 
 
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
