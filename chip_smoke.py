@@ -4,6 +4,10 @@
     python3 chip_smoke.py                    # from the repo root
     python3 chip_smoke.py --profile FILE     # also profiles one step and
                                              # writes the table to FILE
+                                             # (the trainer's step: to
+                                             # FILE.trainer), and prints
+                                             # the threads' CPU seconds
+                                             # over the timed steps
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. device: CUDA present, capability (9, 0); prints the card's name and
@@ -26,6 +30,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
      make_train_step, exactly as bench.py runs the JAX package (3 warm-up
      steps, then timed steps on the same batch); the launch counters,
      zeroed just before, must show 12 launches of each kernel per step.
+  6. the trainer: the same steps as a user of Ray Train takes them,
+     ray_tpu_torch.init() then TorchTrainer(...).fit() with one worker
+     holding the card (ScalingConfig() and TorchConfig() as they come).
+     Its loop checks that the worker sees the one card it was given and
+     an NCCL process group, all-reduces through it, and runs the slice's
+     model, weights and tokens through make_train_step over a data mesh;
+     its launch counters, zeroed just before, must show 12 launches of
+     each kernel per step, its first loss must equal the slice's (2e-2)
+     and its loss must fall.
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -38,7 +51,9 @@ import json
 import math
 import os
 import re
+import shutil
 import sys
+import tempfile
 import time
 
 # Each element of a kernel's output is held to its plain version by
@@ -287,7 +302,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
                     help="profile one training step after the timed ones "
-                         "and write the per-op table to FILE")
+                         "(direct and in the trainer's worker), "
+                         "write the per-op table to FILE and print the "
+                         "threads' CPU seconds over the timed steps")
     args = ap.parse_args(argv)
 
     import torch
@@ -452,7 +469,6 @@ def main(argv=None) -> int:
             lambda p, bt: model.loss(bt),
             optimizer=adamw(1e-4, weight_decay=0.01))
         state = init_state(dict(model.named_parameters()))
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()
         losses = []
@@ -460,6 +476,7 @@ def main(argv=None) -> int:
             state, metrics = train_step(state, batch)
             losses.append(metrics["loss"].item())
         torch.cuda.synchronize()
+        cpu0 = thread_cpu_s() if args.profile else None
         t0 = time.perf_counter()
         timed = []
         for _ in range(TIMED):
@@ -467,6 +484,7 @@ def main(argv=None) -> int:
             timed.append(metrics["loss"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        cpu = cpu0 and thread_cpu_s(cpu0)
         launches = dict(fa.launches)
         losses += [x.item() for x in timed]
         n_steps = len(losses)
@@ -478,6 +496,8 @@ def main(argv=None) -> int:
         print(f"  step {step_ms:.2f} ms, {tok_s:.1f} tokens/s, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
               f"launches {launches}; {kind}; {smi}", flush=True)
+        if cpu:
+            print(f"  threads' CPU s over the timed steps: {cpu}", flush=True)
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"non-finite loss: {losses}")
         if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
@@ -493,6 +513,20 @@ def main(argv=None) -> int:
             records[name]["launches"] = launches[name]
         if args.profile:
             profile_step(torch, train_step, state, batch, args.profile)
+        # the trainer's worker runs the same model on the same tokens
+        slice_first, slice_ms = losses[0], step_ms
+        tokens = tokens.cpu().numpy()
+        del model, state, batch, train_step, init_state, metrics, timed
+        torch.cuda.empty_cache()
+
+    with phase("trainer"):
+        trainer_launches = run_trainer(
+            cfg, tokens, slice_first, slice_ms, kind, smi,
+            args.profile and os.path.abspath(args.profile) + ".trainer")
+        for name in records:
+            records[name]["launches_by_path"] = {
+                "slice": records[name]["launches"],
+                "trainer": trainer_launches[name]}
 
     # after the runs, so that a spill does not hide what the kernels do
     spilled = {src: n for src, n in spills.items()
@@ -509,6 +543,186 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def thread_cpu_s(since=None):
+    """CPU seconds (user + system) of each thread of this process, by
+    its Python name where it has one (Linux /proc); with `since` (an
+    earlier reading), the four busiest threads' seconds since then."""
+    import threading
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except FileNotFoundError:  # the thread ended
+            continue
+        out[names.get(int(tid), f"tid {tid}")] = \
+            (int(fields[11]) + int(fields[12])) / tick
+    if since is None:
+        return out
+    spent = {n: s - since.get(n, 0.0) for n, s in out.items()}
+    return dict(sorted(spent.items(), key=lambda kv: -kv[1])[:4])
+
+
+def process_start_time():
+    """When this process started, on the wall clock (Linux /proc: its
+    start and the uptime, both since boot, to 10 ms)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return time.time() - (uptime - ticks / os.sysconf("SC_CLK_TCK"))
+
+
+def trainer_loop(config):
+    """The train loop of the trainer phase, in the worker the trainer
+    gives the card: checks the worker's card and process group, then the
+    slice's steps through make_train_step over a data mesh; reports once."""
+    loop_start = time.time()
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import Transformer
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step
+
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"process group backend {dist.get_backend()}")
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible != config["visible"]:
+        raise AssertionError(f"CUDA_VISIBLE_DEVICES {visible!r}, assigned "
+                             f"{config['visible']!r}")
+    if torch.cuda.device_count() != 1:
+        raise AssertionError(f"the worker sees {torch.cuda.device_count()} "
+                             f"cards, not the one it was given")
+    t0 = time.perf_counter()
+    x = torch.full((1,), dist.get_rank() + 1.0, device="cuda")
+    dist.all_reduce(x)  # creates the NCCL communicator
+    world = dist.get_world_size()
+    if x.item() != world * (world + 1) / 2:
+        raise AssertionError(f"all_reduce gave {x.item()}")
+    nccl_s = time.perf_counter() - t0
+    stamps = {"process": process_start_time(), "loop": loop_start,
+              "nccl": time.time()}
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the driver has it
+    torch.backends.cudnn.allow_tf32 = False
+
+    model = Transformer(config["cfg"], seed=SEED)
+    torch.cuda.synchronize()
+    stamps["model"] = time.time()
+    mesh = make_mesh(MeshConfig(data=-1))
+    stamps["mesh"] = time.time()
+    init_state, train_step = make_train_step(
+        lambda p, bt: model.loss(bt), None, mesh,
+        optimizer=adamw(1e-4, weight_decay=0.01))
+    state = init_state(dict(model.named_parameters()))
+    batch = {"tokens": torch.tensor(config["tokens"], device="cuda")}
+    torch.cuda.synchronize()
+    stamps["built"] = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses = []
+    for _ in range(WARMUP):
+        state, metrics = train_step(state, batch)
+        losses.append(metrics["loss"].item())
+    torch.cuda.synchronize()
+    stamps["warm"] = time.time()
+    cpu0 = thread_cpu_s() if config["profile"] else None
+    t0 = time.perf_counter()
+    timed = []
+    for _ in range(TIMED):
+        state, metrics = train_step(state, batch)
+        timed.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    cpu = cpu0 and thread_cpu_s(cpu0)
+    launches = dict(fa.launches)
+    stamps["timed"] = time.time()
+    if config["profile"]:
+        profile_step(torch, train_step, state, batch, config["profile"])
+    stamps["report"] = time.time()
+    train.report({
+        "stamps": stamps, "nccl_s": nccl_s, "visible": visible,
+        "losses": losses + [x.item() for x in timed],
+        "step_ms": dt / TIMED * 1e3,
+        "tokens_s": config["tokens"].shape[0]
+        * (config["tokens"].shape[1] - 1) * TIMED / dt,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "thread_cpu_s": cpu})
+
+
+def run_trainer(cfg, tokens, slice_first, slice_ms, kind, smi, profile):
+    """ray_tpu_torch.init() and a one-worker TorchTrainer.fit() on the card;
+    checks what the worker reports and returns its launch counts."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private.accelerators.nvidia_gpu import \
+        NvidiaGPUAcceleratorManager
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        t0 = time.perf_counter()
+        ray_tpu_torch.init(num_cpus=2, _session_root=root)
+        cluster_s = time.perf_counter() - t0
+        gpus = ray_tpu_torch.cluster_resources().get("GPU")
+        if gpus != 1.0:
+            raise AssertionError(f"the node reports GPU {gpus}, not 1.0")
+        visible = NvidiaGPUAcceleratorManager.\
+            get_current_node_accelerator_ids()[0]
+        fit_start = time.time()
+        result = TorchTrainer(
+            trainer_loop,
+            train_loop_config={"cfg": cfg, "tokens": tokens,
+                               "visible": visible, "profile": profile},
+            scaling_config=ScalingConfig(num_workers=1),
+            run_config=RunConfig(storage_path=os.path.join(root, "results"),
+                                 name="trainer")).fit()
+        fit_end = time.time()
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    if result.error is not None:
+        raise AssertionError(f"trainer run failed: {result.error!r}")
+    m = result.metrics
+    losses, launches = m["losses"], m["launches"]
+    t = m["stamps"]
+    print(f"  cluster start {cluster_s:.2f} s; fit() {fit_end - fit_start:.2f}"
+          f" s: to the worker process's start {t['process'] - fit_start:.2f}"
+          f" s, to the loop's first line "
+          f"{t['loop'] - t['process']:.2f} s (imports, actor, GPU split, "
+          f"process group), first NCCL all_reduce {m['nccl_s']:.2f} s, "
+          f"model {t['model'] - t['nccl']:.2f} s, mesh "
+          f"{t['mesh'] - t['model']:.2f} s, state and batch "
+          f"{t['built'] - t['mesh']:.2f} s, {WARMUP} warm-up "
+          f"steps {t['warm'] - t['built']:.2f} s, {TIMED} timed "
+          f"{t['timed'] - t['warm']:.2f} s, report to return "
+          f"{fit_end - t['report']:.2f} s; worker sees "
+          f"CUDA_VISIBLE_DEVICES={m['visible']}; {kind}; {smi}", flush=True)
+    if m["thread_cpu_s"]:
+        print(f"  worker threads' CPU s over the timed steps: "
+              f"{m['thread_cpu_s']}", flush=True)
+    print(f"  losses {['%.4f' % x for x in losses]}", flush=True)
+    print(f"  trainer step {m['step_ms']:.2f} ms (direct step "
+          f"{slice_ms:.2f} ms), {m['tokens_s']:.1f} tokens/s, peak memory "
+          f"{m['peak_gib']:.2f} GiB, launches {launches}; {kind}; {smi}",
+          flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if abs(losses[0] - slice_first) > 2e-2:
+        raise AssertionError(f"first loss {losses[0]} is not the slice's "
+                             f"{slice_first}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss does not fall: {losses}")
+    want = cfg.n_layers * len(losses)
+    if launches != {n: want for n in launches}:
+        raise AssertionError(f"expected {cfg.n_layers} launches of each "
+                             f"kernel per step ({want}), got {launches}")
+    return launches
 
 
 def profile_step(torch, train_step, state, batch, path):

@@ -26,18 +26,21 @@ REPO = PKG.parent
 
 def _is_forbidden(module):
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "optax", "ray_tpu")
+    return top in ("jax", "jaxlib", "optax", "orbax", "ray_tpu")
 
 
 def test_fresh_import_pulls_in_no_jax_and_no_ray_tpu():
+    # every Python module of the package; the runtime's ctypes library
+    # (native/libraytpustore.so, built at first use) is not one
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import ray_tpu_torch\n"
         "for m in pkgutil.walk_packages(ray_tpu_torch.__path__, "
         "'ray_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "    if importlib.util.find_spec(m.name).origin.endswith('.py'):\n"
+        "        importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'ray_tpu'))\n"
+        "('jax', 'jaxlib', 'optax', 'orbax', 'ray_tpu'))\n"
         "print('IMPORTED', len([n for n in sys.modules "
         "if n.startswith('ray_tpu_torch')]))\n"
         "print('BAD', bad)\n")
@@ -45,6 +48,9 @@ def test_fresh_import_pulls_in_no_jax_and_no_ray_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    # every source file was imported (the runtime's _private/ included)
+    imported = int(out.stdout.split("IMPORTED ")[1].split()[0])
+    assert imported >= len(SOURCES), (imported, len(SOURCES))
 
 
 # the package's own sources; _build/ holds build outputs, never sources
@@ -52,7 +58,7 @@ SOURCES = sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")
                  if "_build" not in p.relative_to(PKG).parts)
 
 
-@pytest.mark.parametrize("path", SOURCES)
+@pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py"])
 def test_source_imports_no_jax_and_no_ray_tpu(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):

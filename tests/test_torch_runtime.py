@@ -1,0 +1,241 @@
+"""The port's copy of the runtime (tasks, actors, objects, placement
+groups), its GPU accelerator manager and the trainer's GPU visibility,
+on the CPU.
+
+The copy guard holds every module the port keeps verbatim equal to the
+JAX package's after the rename rule; the modules the port edits are
+listed in CHANGES.md. The cluster is one ray_tpu_torch.init(num_cpus=4)
+for the module, with RAY_TPU_FAKE_NUM_GPUS=2 so that its node reports
+two GPUs through the GPU manager; nothing here touches CUDA.
+"""
+
+import os
+import re
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import ray_tpu_torch
+from ray_tpu_torch import exceptions as exc
+from ray_tpu_torch._private.accelerators import detect_node_accelerators
+from ray_tpu_torch._private.accelerators.nvidia_gpu import (
+    GPU_FAKE_NUM_ENV, NvidiaGPUAcceleratorManager)
+
+REPO = Path(__file__).resolve().parent.parent
+
+# The rename rule: imports and strings that name the JAX package's
+# modules name the port's. Environment variables (RAY_TPU_*), session
+# directory prefixes and CLI names (`ray_tpu logs`) stay as they are.
+def rename(src: str) -> str:
+    src = re.sub(r"\bray_tpu\.", "ray_tpu_torch.", src)
+    src = re.sub(r"\bfrom ray_tpu import\b", "from ray_tpu_torch import",
+                 src)
+    return re.sub(r"\bimport ray_tpu\b(?![.\w])", "import ray_tpu_torch",
+                  src)
+
+
+# every module the port copies without an edit (paths under both
+# packages); the edited ones are listed, with reasons, in CHANGES.md
+VERBATIM = [
+    "_private/accelerators/accelerator.py", "_private/chaos.py",
+    "_private/config.py", "_private/core_worker.py", "_private/events.py",
+    "_private/gcs.py", "_private/goodput.py", "_private/ids.py",
+    "_private/log_monitor.py", "_private/log_plane.py",
+    "_private/memory_monitor.py", "_private/memory_plane.py",
+    "_private/metrics_history.py", "_private/node_main.py",
+    "_private/node_manager.py", "_private/object_ref.py",
+    "_private/object_store.py", "_private/ownership.py", "_private/rpc.py",
+    "_private/runtime_env.py", "_private/scheduler.py",
+    "_private/serialization.py", "_private/shm_channel.py",
+    "_private/spans.py", "_private/state.py", "_private/task_events.py",
+    "_private/usage.py", "_private/wait_graph.py", "_private/worker_main.py",
+    "api.py", "chaos.py", "exceptions.py",
+    "native/Makefile", "native/__init__.py", "native/store_arena.cpp",
+    "train/backend.py", "train/checkpoint_manager.py",
+    "train/data_parallel_trainer.py", "train/elastic.py",
+    "train/heartbeat.py", "train/session.py", "train/worker_group.py",
+    "util/actor_pool.py", "util/locks.py", "util/metrics.py",
+    "util/placement_group.py", "util/queue.py",
+    "util/scheduling_strategies.py",
+]
+
+
+@pytest.mark.parametrize("path", VERBATIM)
+def test_copy_equals_reference_under_the_rename_rule(path):
+    ref = (REPO / "ray_tpu" / path).read_text()
+    port = (REPO / "ray_tpu_torch" / path).read_text()
+    assert port == (rename(ref) if path.endswith(".py") else ref)
+
+
+def test_rename_rule_reaches_the_worker_command():
+    """The node manager spawns the port's workers, not the JAX
+    package's."""
+    src = (REPO / "ray_tpu_torch/_private/node_manager.py").read_text()
+    assert '"-m", "ray_tpu_torch._private.worker_main"' in src
+    assert "RAY_TPU_WORKER_ID" in src  # env names stay
+
+
+@pytest.fixture(scope="module")
+def cluster():
+    old = os.environ.get(GPU_FAKE_NUM_ENV)
+    os.environ[GPU_FAKE_NUM_ENV] = "2"  # the node and its workers see 2
+    ray_tpu_torch.init(num_cpus=4)
+    yield ray_tpu_torch
+    ray_tpu_torch.shutdown()
+    if old is None:
+        del os.environ[GPU_FAKE_NUM_ENV]
+    else:
+        os.environ[GPU_FAKE_NUM_ENV] = old
+
+
+def test_tasks(cluster):
+    @ray_tpu_torch.remote
+    def add(a, b):
+        return a + b
+
+    @ray_tpu_torch.remote(num_returns=2)
+    def divmod_(a, b=3):
+        return a // b, a % b
+
+    assert ray_tpu_torch.get(add.remote(1, 2)) == 3
+    refs = [add.remote(i, i) for i in range(25)]
+    assert ray_tpu_torch.get(refs) == [2 * i for i in range(25)]
+    q, r = divmod_.remote(10, b=4)
+    assert ray_tpu_torch.get([q, r]) == [2, 2]
+
+    @ray_tpu_torch.remote
+    def boom():
+        raise ValueError("boom")
+
+    with pytest.raises(exc.RayTaskError):
+        ray_tpu_torch.get(boom.remote())
+
+
+def test_put_get(cluster):
+    for value in [1, "x", {"a": [1, 2]}, None, np.arange(10)]:
+        out = ray_tpu_torch.get(ray_tpu_torch.put(value))
+        if isinstance(value, np.ndarray):
+            np.testing.assert_array_equal(out, value)
+        else:
+            assert out == value
+    big = np.random.default_rng(0).standard_normal(1 << 18)  # object store
+    np.testing.assert_array_equal(ray_tpu_torch.get(ray_tpu_torch.put(big)),
+                                  big)
+
+
+def test_wait(cluster):
+    @ray_tpu_torch.remote
+    def sleepy(t):
+        time.sleep(t)
+        return t
+
+    fast = sleepy.remote(0.01)
+    slow = sleepy.remote(1.2)
+    ready, rest = ray_tpu_torch.wait([fast, slow], num_returns=1, timeout=10)
+    assert ready == [fast] and rest == [slow]
+    assert ray_tpu_torch.get(slow) == 1.2
+
+
+def test_actor(cluster):
+    @ray_tpu_torch.remote
+    class Counter:
+        def __init__(self, start=0):
+            self.n = start
+
+        def incr(self, k=1):
+            self.n += k
+            return self.n
+
+    c = Counter.remote(10)
+    assert ray_tpu_torch.get([c.incr.remote() for _ in range(5)]) == \
+        [11, 12, 13, 14, 15]
+    ray_tpu_torch.kill(c)
+
+
+def test_placement_group(cluster):
+    from ray_tpu_torch.util import (PlacementGroupSchedulingStrategy,
+                                    placement_group, remove_placement_group)
+
+    pg = placement_group([{"CPU": 1}, {"CPU": 1}], strategy="PACK")
+    assert pg.wait(30)
+
+    @ray_tpu_torch.remote
+    def where():
+        return ray_tpu_torch.get_runtime_context().get_node_id()
+
+    refs = [where.options(scheduling_strategy=PlacementGroupSchedulingStrategy(
+        pg, placement_group_bundle_index=i)).remote() for i in range(2)]
+    assert len(set(ray_tpu_torch.get(refs))) == 1
+    remove_placement_group(pg)
+
+
+def test_unported_libraries_raise_naming_roadmap(cluster):
+    @ray_tpu_torch.remote
+    def f():
+        return 1
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        f.bind()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ray_tpu_torch.init("ray://localhost:1")
+    from ray_tpu_torch._private.profiler import device_profile
+    from ray_tpu_torch.util import state
+    for call in (device_profile, state.serve_fleet, state.replay_shards):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+
+
+def test_gpu_manager_counts_fake_visible_and_nvidia_smi(monkeypatch):
+    gpus = NvidiaGPUAcceleratorManager
+    assert gpus.get_resource_name() == "GPU"
+    assert gpus.get_visible_accelerator_ids_env_var() == \
+        "CUDA_VISIBLE_DEVICES"
+    monkeypatch.setenv(GPU_FAKE_NUM_ENV, "2")
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "5")
+    assert detect_node_accelerators() == {"GPU": 2.0}  # fake wins
+    monkeypatch.delenv(GPU_FAKE_NUM_ENV)
+    assert detect_node_accelerators() == {"GPU": 1.0}
+    assert gpus.get_current_node_accelerator_ids() == ["5"]
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    assert detect_node_accelerators() == {}
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES")
+    # no variable: one card a line of `nvidia-smi -L`; none here
+    from ray_tpu_torch._private.accelerators import nvidia_gpu
+    monkeypatch.setattr(nvidia_gpu, "_nvidia_smi", lambda *a: [
+        "GPU 0: NVIDIA H100 80GB HBM3 (UUID: GPU-1)",
+        "GPU 1: NVIDIA H100 80GB HBM3 (UUID: GPU-2)"]
+        if a == ("-L",) else ["NVIDIA H100 80GB HBM3"])
+    assert gpus.get_current_node_num_accelerators() == 2
+    assert gpus.get_current_node_accelerator_type() == "H100"
+
+
+@pytest.mark.parametrize("per_worker, seen", [
+    ({"CPU": 1, "GPU": 1}, ["0", "1"]),       # ScalingConfig()'s demand
+    ({"CPU": 1, "GPU": 0.5}, ["0", "0"]),     # a share of one card each
+    ({"CPU": 1}, ["", ""]),                   # use_gpu=False: no card
+])
+def test_node_reports_gpus_and_workers_split_them(cluster, per_worker, seen):
+    """The node's GPUs come from the GPU manager; co-located workers of a
+    gang see the cards of their local rank's share, and a worker that
+    asked for none sees none."""
+    from ray_tpu_torch.train import ScalingConfig
+    from ray_tpu_torch.train.backend import BackendConfig
+    from ray_tpu_torch.train.backend_executor import BackendExecutor
+
+    assert ScalingConfig()._resources_per_worker_not_none == \
+        {"CPU": 1, "GPU": 1}
+    assert ray_tpu_torch.cluster_resources()["GPU"] == 2.0
+    ex = BackendExecutor(BackendConfig(), ScalingConfig(
+        num_workers=2, resources_per_worker=per_worker))
+    ex._form_group()
+    try:
+        assert [c.local_rank for c in ex._contexts] == [0, 1]
+        assert ex.worker_group.execute(
+            lambda: os.environ.get("CUDA_VISIBLE_DEVICES")) == seen
+        # the split touched no torch (so no CUDA) in the workers
+        assert ex.worker_group.execute(
+            lambda: "torch" in __import__("sys").modules) == [False, False]
+    finally:
+        ex.shutdown()

@@ -16,12 +16,15 @@ import pytest
 import jax
 import optax
 import torch
+import torch.distributed as dist
 
 from ray_tpu.models import TINY as JTINY
 from ray_tpu.models import Transformer as JTransformer
 from ray_tpu.parallel import MeshConfig, make_mesh
 from ray_tpu.parallel.train_step import make_train_step as jax_make_train_step
 from ray_tpu_torch.models import TINY, Transformer
+from ray_tpu_torch.parallel import MeshConfig as PMeshConfig
+from ray_tpu_torch.parallel import make_mesh as p_make_mesh
 from ray_tpu_torch.parallel.train_step import adamw, make_train_step
 
 STEPS = 10
@@ -89,5 +92,29 @@ def test_default_optimizer_is_adamw_3e4_decay_001():
 
 
 def test_mesh_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="sharded train step"):
-        make_train_step(lambda p, b: 0.0, None, object(), device="cpu")
+    """Only the data axis is ported: an fsdp or tensor mesh raises, and a
+    data mesh (world 1, gloo, in this process) is accepted and steps
+    exactly as the single-device step does (no collective at D = 1)."""
+    for over in (dict(fsdp=2), dict(tensor=2)):
+        with pytest.raises(NotImplementedError, match="sharded train step"):
+            p_make_mesh(PMeshConfig(data=1, **over), device="cpu")
+    from ray_tpu_torch._private.rpc import find_free_port
+    dist.init_process_group("gloo", world_size=1, rank=0,
+                            init_method=f"tcp://127.0.0.1:{find_free_port()}")
+    try:
+        mesh = p_make_mesh(PMeshConfig(data=-1), device="cpu")
+        tokens = np.random.default_rng(0).integers(
+            0, TINY.vocab_size, (2, 17)).astype(np.int64)
+        losses = []
+        for m in (mesh, None):
+            torch.manual_seed(0)
+            model = Transformer(TINY.replace(dtype="float32"), device="cpu")
+            init, step = make_train_step(lambda p, b: model.loss(b), None, m,
+                                         device="cpu")
+            state = init(dict(model.named_parameters()))
+            for _ in range(2):
+                state, metrics = step(state, {"tokens": tokens})
+            losses.append(metrics["loss"].item())
+        assert losses[0] == losses[1]
+    finally:
+        dist.destroy_process_group()
