@@ -7,8 +7,9 @@ imports torch, numpy and the standard library, never jax or ray_tpu.
 
 Ported so far: the flagship decoder's training step (models/, ops/,
 parallel/), the runtime it runs on (tasks, actors, objects, placement
-groups: a copy of ray_tpu's, with a GPU accelerator manager) and Ray
-Train's TorchTrainer over an NCCL (gloo on the CPU) process group.
+groups: a copy of ray_tpu's, with a GPU accelerator manager), Ray
+Train's TorchTrainer over an NCCL (gloo on the CPU) process group, and
+RLlib's PPO (rllib/: the learner on the card, CPU EnvRunner actors).
 Importing this package imports no torch: the runtime is framework-free.
 Entry points run on the card unless the caller names another device
 (``device="cpu"``, ``ScalingConfig(use_gpu=False)``), and raise when

@@ -43,11 +43,13 @@ def test_fresh_import_pulls_in_no_jax_and_no_ray_tpu():
         "('jax', 'jaxlib', 'optax', 'orbax', 'ray_tpu'))\n"
         "print('IMPORTED', len([n for n in sys.modules "
         "if n.startswith('ray_tpu_torch')]))\n"
+        "print('RLLIB', 'ray_tpu_torch.rllib' in sys.modules)\n"
         "print('BAD', bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert "RLLIB True" in out.stdout, out.stdout
     # every source file was imported (the runtime's _private/ included)
     imported = int(out.stdout.split("IMPORTED ")[1].split()[0])
     assert imported >= len(SOURCES), (imported, len(SOURCES))
@@ -77,6 +79,48 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         Transformer(TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_train_step(lambda p, b: 0.0)
+
+
+def test_rllib_learner_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """PPO with no learner device asks for the card, and raises without
+    one before it starts any runner."""
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib.algorithms.algorithm import EnvRunnerSet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = []
+    monkeypatch.setattr(EnvRunnerSet, "__init__",
+                        lambda *a: started.append(a))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PPOConfig().environment("CartPole-v1").build()
+    assert not started
+
+
+RLLIB_UNPORTED = ["IMPALA", "APPO", "DQN", "SAC", "TD3", "DDPG", "CQL",
+                  "MARWIL", "BC", "ES", "PG", "A2C", "SimpleQ"]
+
+
+@pytest.mark.parametrize("name", RLLIB_UNPORTED)
+def test_rllib_unported_algorithms_raise_naming_roadmap(name):
+    from ray_tpu_torch.rllib import get_algorithm_class, registered_algorithms
+    assert registered_algorithms() == ("PPO",)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_algorithm_class(name)
+
+
+def test_rllib_unported_paths_raise_naming_roadmap():
+    from ray_tpu_torch.rllib import LearnerGroup, PPOConfig
+    from ray_tpu_torch.rllib.algorithms.ppo.ppo import MultiAgentPPOLearner
+    with pytest.raises(NotImplementedError, match="ROADMAP.*elastic"):
+        LearnerGroup(lambda: None, num_learners=2, elastic_min_learners=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-agent"):
+        MultiAgentPPOLearner(None, PPOConfig())
+    base = PPOConfig().environment("CartPole-v1").learners(device="cpu")
+    for config in (base.copy().env_runners(env_connectors=[object()]),
+                   base.copy().multi_agent(policies={"p": None},
+                                           policy_mapping_fn=str),
+                   base.copy().offline_data(output="/nonexistent")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            config.build()
 
 
 def test_unported_paths_raise_naming_their_slice():

@@ -59,6 +59,12 @@ VERBATIM = [
     "util/actor_pool.py", "util/locks.py", "util/metrics.py",
     "util/placement_group.py", "util/queue.py",
     "util/scheduling_strategies.py",
+    "rllib/algorithms/__init__.py", "rllib/algorithms/ppo/__init__.py",
+    "rllib/core/__init__.py", "rllib/env/__init__.py", "rllib/env/base.py",
+    "rllib/env/cartpole.py", "rllib/env/minipong.py",
+    "rllib/env/multi_agent.py", "rllib/env/spaces.py",
+    "rllib/env/vector.py", "rllib/env/wrappers.py", "rllib/utils/__init__.py",
+    "rllib/utils/postprocessing.py",
 ]
 
 
