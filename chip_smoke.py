@@ -67,6 +67,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
      grad_norm 1e-5 relative, weights 1e-6) in a process that sees one
      card. The path launches none of the flash kernels (counted:
      launches_by_path "rllib").
+  8. impala: IMPALA and APPO on the card, f32 with TF32 off, at the
+     settings of RLlib's Pong IMPALA tuned examples
+     (tuned_examples/impala/pong-impala.yaml, pong-impala-fast.yaml:
+     fragment 50, batch 500, 5 envs a runner, lr 5e-4, grad_clip 40, vf
+     0.5, entropy 0.01) with the Nature CNN at full width: (1)
+     ImpalaLearner and APPOLearner on the card against the CPU from the
+     same weights on one [50, 10] time-major batch: V-trace against an
+     f64 CPU call on the same inputs (1e-5 relative norm), the loss (1e-5
+     relative), the grads (GRAD_RTOL or GRAD_F64_RTOL, as in 7), then 20
+     updates' mean total_loss (1e-3 relative); (2) 20 staged batches
+     through HostStage and DeviceFeed: every column equal to its host
+     column to the bit, pinned slots, the copy on a side stream, no slot
+     grown after each was used once, the feed's copy rate beside a
+     pageable .to() of the same batch and one pinned copy of as many
+     bytes; (3) ImpalaConfig().build() with
+     the learner local on the card and R CPU EnvRunner actors,
+     algo.train() for 30 s of wall time, then the learner drained: the
+     params on CUDA, no runner with CUDA initialised and each on one
+     thread, updates > 0, env steps trained = 500 x updates, the queue
+     within its bound, R healthy runners, every batch shipped and
+     consumed by the feed, finite stats, the runners holding the
+     learner's weights after a last sync; env steps sampled and trained
+     a second, updates a second, the learner's busy share, the feed's
+     stats and the peak device memory printed; (4) APPO the same way for
+     15 s, mean_ratio within (0.2, 5); (5) IMPALA CartPole at
+     tests/test_rllib.py:139's config with the learner on the card, seeds
+     0-4: 150 within 250 iterations in all of them
+     (IMPALA_CARTPOLE_SEEDS says why). The path launches none of the
+     flash kernels (launches_by_path "impala", which must be 0).
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -565,6 +594,15 @@ def main(argv=None) -> int:
         for name in records:
             records[name]["launches_by_path"]["rllib"] = fa.launches[name]
 
+    with phase("impala"):
+        fa.reset_launches()
+        run_impala(torch, kind, smi)
+        if any(fa.launches.values()):
+            raise AssertionError(f"the impala path launched flash kernels: "
+                                 f"{dict(fa.launches)}")
+        for name in records:
+            records[name]["launches_by_path"]["impala"] = fa.launches[name]
+
     # after the runs, so that a spill does not hide what the kernels do
     spilled = {src: n for src, n in spills.items()
                if src in HOPPER_SOURCES and n}
@@ -818,11 +856,31 @@ def pong_batch(torch, module, rows):
 
 
 def loss_and_grads(torch, learner, mb):
-    """A PPO learner's loss and grads (on the CPU) on one minibatch."""
+    """A learner's loss and its grads (on the CPU) on one batch."""
     batch = {k: torch.from_numpy(v).to(learner.device) for k, v in mb.items()}
     loss, _ = learner.compute_loss(batch, learner.extra_inputs())
     grads = torch.autograd.grad(loss, list(learner.module.parameters()))
     return loss.item(), [g.cpu() for g in grads]
+
+
+def check_grads(host, grads_c, grads_h, grads_x):
+    """Each grad on the card against the CPU learner's (`host`) at
+    GRAD_RTOL relative norm, or against the f64 CPU learner's at
+    GRAD_F64_RTOL; prints every param's errors and raises on a miss."""
+    bad = {}
+    for (name, _), gc, gh, gx in zip(host.module.named_parameters(),
+                                     grads_c, grads_h, grads_x):
+        err = {"card-CPU": gc - gh, "card-f64": gc.double() - gx,
+               "CPU-f64": gh.double() - gx}
+        err = {k: (v.norm() / (gh if k == "card-CPU" else gx).norm()).item()
+               for k, v in err.items()}
+        print(f"    {name}: relative norm error " + ", ".join(
+            f"{k} {v:.2e}" for k, v in err.items()), flush=True)
+        if not (err["card-CPU"] < GRAD_RTOL
+                or err["card-f64"] < GRAD_F64_RTOL):
+            bad[name] = err
+    if bad:
+        raise AssertionError(f"grads card vs CPU and f64: {bad}")
 
 
 def f32_learner(module, config):
@@ -874,20 +932,7 @@ def run_rllib(torch, kind, smi, profile=None):
           f"{loss_h:.7f} (rel {loss_err:.2e})", flush=True)
     if not loss_err < 1e-5:
         raise AssertionError(f"loss card {loss_c} vs CPU {loss_h}")
-    bad = {}
-    for (name, _), gc, gh, gx in zip(host.module.named_parameters(),
-                                     grads_c, grads_h, grads_x):
-        err = {"card-CPU": gc - gh, "card-f64": gc.double() - gx,
-               "CPU-f64": gh.double() - gx}
-        err = {k: (v.norm() / (gh if k == "card-CPU" else gx).norm()).item()
-               for k, v in err.items()}
-        print(f"    {name}: relative norm error " + ", ".join(
-            f"{k} {v:.2e}" for k, v in err.items()), flush=True)
-        if not (err["card-CPU"] < GRAD_RTOL
-                or err["card-f64"] < GRAD_F64_RTOL):
-            bad[name] = err
-    if bad:
-        raise AssertionError(f"grads card vs CPU and f64: {bad}")
+    check_grads(host, grads_c, grads_h, grads_x)
     del exact
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1107,6 +1152,359 @@ def run_cartpole(ray_tpu_torch):
     if len(reached) < CARTPOLE_MIN_REACHED:
         raise AssertionError(f"PPO CartPole reached {BAR} in "
                              f"{len(reached)} of {len(runs)} seeds")
+
+
+# phase "impala": IMPALA and APPO at the settings of RLlib's Pong IMPALA
+# tuned examples (tuned_examples/impala/pong-impala.yaml and
+# pong-impala-fast.yaml): fragment 50, batch 500, 5 envs a runner, lr
+# 5e-4, grad_clip 40, vf 0.5, entropy 0.01, which are ImpalaConfig's
+# defaults (APPOConfig's: lr 3e-4, entropy 0.005, clip 0.3)
+IMPALA_T, IMPALA_ENVS = 50, 5           # fragment length, envs a runner
+IMPALA_B = 2 * IMPALA_ENVS              # a [50, 10] batch: 500 frames
+# V-trace on the card against an f64 CPU call on the same inputs, each
+# output's relative norm error (f32 over a 50-step recursion)
+VTRACE_RTOL = 1e-5
+IMPALA_UPDATES = 20
+# the feed: batches pushed one at a time through a stage of FEED_SLOTS
+# slots (the algorithm's learner_queue_size + 4), whose FIFO free list
+# hands out every slot once before it reuses one
+FEED_BATCHES, FEED_SLOTS = 20, 8
+IMPALA_S, APPO_S = 30.0, 15.0           # wall seconds of algo.train()
+# IMPALA CartPole (rllib_learning_sweep.impala_cartpole_config, the bar
+# BAR within IMPALA_ITERS iterations): the asynchronous path's sample
+# order is not deterministic, so one seed proves nothing; over seeds 0-19
+# on the CPU (rllib_learning_sweep.py --algo impala) both packages met
+# the bar in every run (PERF.md §6). The check asks for all of seeds
+# 0-4.
+IMPALA_CARTPOLE_SEEDS = tuple(range(5))
+IMPALA_CARTPOLE_MIN_REACHED = 5
+
+
+def impala_fragments(np, rng, n):
+    """`n` runner fragments of MiniPong's shapes in the learner's
+    time-major columns (impala._to_timemajor), made with numpy from
+    `rng`: random frames and actions, sparse +-1 rewards and dones, the
+    behaviour logp scattered around the uniform policy's."""
+    t, b = IMPALA_T, IMPALA_ENVS
+    return [{
+        "obs": rng.integers(0, 256, (t, b, *PONG_OBS), dtype=np.uint8),
+        "actions": rng.integers(0, PONG_ACTIONS, (t, b)).astype(np.int32),
+        "rewards": (rng.choice([-1.0, 0.0, 1.0], (t, b),
+                               p=[0.02, 0.96, 0.02])).astype(np.float32),
+        "dones": rng.random((t, b)) < 0.01,
+        "behaviour_logp": (-math.log(PONG_ACTIONS) + 0.3
+                           * rng.standard_normal((t, b))).astype(np.float32),
+        "bootstrap_value": rng.standard_normal(b).astype(np.float32),
+    } for _ in range(n)]
+
+
+def run_impala(torch, kind, smi):
+    """Phase "impala" (the module docstring's phase 8)."""
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import APPOConfig, ImpalaConfig
+    impala_learners(torch, np, kind, smi)
+    run_feed(torch, np, kind, smi)
+    runners = max(2, min(32, (os.cpu_count() or 4) - 2))
+    root = tempfile.mkdtemp(prefix="chip_smoke_impala_")
+    try:
+        t0 = time.perf_counter()
+        ray_tpu_torch.init(num_cpus=runners + 1, _session_root=root)
+        print(f"  cluster start {time.perf_counter() - t0:.2f} s; "
+              f"R = {runners} CPU EnvRunner actors", flush=True)
+        run_async(torch, np, ImpalaConfig, IMPALA_S, runners, kind, smi)
+        run_async(torch, np, APPOConfig, APPO_S, runners, kind, smi)
+        run_impala_cartpole()
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def impala_learners(torch, np, kind, smi):
+    """(1): ImpalaLearner and APPOLearner at full width on the card
+    against the CPU (and an f64 CPU learner) from the same weights on one
+    [50, 10] batch: V-trace, loss, grads, then IMPALA_UPDATES updates."""
+    from ray_tpu_torch.rllib import (APPOConfig, DiscreteConvModule,
+                                     ImpalaConfig)
+    from ray_tpu_torch.rllib.algorithms.appo.appo import APPOLearner
+    from ray_tpu_torch.rllib.algorithms.impala.impala import (
+        ImpalaLearner, _concat_fragments)
+    from ray_tpu_torch.rllib.algorithms.impala.vtrace import \
+        from_importance_weights
+    module = DiscreteConvModule(PONG_OBS, PONG_ACTIONS)
+    module.init_params(SEED)
+    batch = _concat_fragments(impala_fragments(
+        np, np.random.default_rng(SEED), 2))
+    for cls, config in ((ImpalaLearner, ImpalaConfig()),
+                        (APPOLearner, APPOConfig())):
+        name = cls.__name__
+        card = cls(module, config.copy().learners(device="cuda"))
+        host = cls(module, config.copy().learners(device="cpu"))
+        exact = cls(module, config.copy().learners(device="cpu"))
+        for learner in (card, host, exact):
+            learner.build(SEED)
+        exact.module.double()
+        with torch.no_grad():
+            dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+            _, _, log_rhos, values, vt = card._vtrace_prelude(dev)
+            discounts = config.gamma * (1.0 - dev["dones"].float())
+            want = from_importance_weights(
+                *(x.double().cpu() for x in (
+                    log_rhos, discounts, dev["rewards"], values,
+                    dev["bootstrap_value"])),
+                config.clip_rho_threshold, config.clip_pg_rho_threshold)
+        vt_err = max((got.double().cpu() - ref).norm().item()
+                     / ref.norm().item()
+                     for got, ref in zip(vt, want))
+        loss_c, grads_c = loss_and_grads(torch, card, batch)
+        loss_h, grads_h = loss_and_grads(torch, host, batch)
+        _, grads_x = loss_and_grads(torch, exact, batch)
+        loss_err = abs(loss_c - loss_h) / abs(loss_h)
+        print(f"  {name} on a [{IMPALA_T}, {IMPALA_B}] batch: V-trace "
+              f"card vs f64 CPU rel norm err {vt_err:.2e}; loss card "
+              f"{loss_c:.7f} CPU {loss_h:.7f} (rel {loss_err:.2e})",
+              flush=True)
+        if not vt_err < VTRACE_RTOL:
+            raise AssertionError(f"{name} V-trace card vs f64: {vt_err}")
+        if not loss_err < 1e-5:
+            raise AssertionError(f"{name} loss card {loss_c} vs CPU "
+                                 f"{loss_h}")
+        check_grads(host, grads_c, grads_h, grads_x)
+        del exact
+        times, totals = [], {"card": [], "CPU": []}
+        for _ in range(IMPALA_UPDATES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            totals["card"].append(card.update(batch)["total_loss"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(IMPALA_UPDATES):
+            totals["CPU"].append(host.update(batch)["total_loss"])
+        host_s = time.perf_counter() - t0
+        mean_c, mean_h = np.mean(totals["card"]), np.mean(totals["CPU"])
+        update_err = abs(mean_c - mean_h) / abs(mean_h)
+        print(f"  {name}: {IMPALA_UPDATES} updates, mean total_loss card "
+              f"{mean_c:.6f} CPU {mean_h:.6f} (rel {update_err:.2e}); an "
+              f"update on the card {times[0] * 1e3:.2f} ms first, then "
+              f"median {np.median(times[1:]) * 1e3:.3f} ms (the batch's "
+              f"pageable copy and the lagged stats' sync included); CPU "
+              f"{host_s / IMPALA_UPDATES * 1e3:.1f} ms; {kind}; {smi}",
+              flush=True)
+        if not update_err < 1e-3:
+            raise AssertionError(f"{name} updates card {totals['card']} vs "
+                                 f"CPU {totals['CPU']}")
+        del card, host
+
+
+def run_feed(torch, np, kind, smi):
+    """(2): FEED_BATCHES staged [50, 10] batches through HostStage and
+    DeviceFeed on the card, one at a time: every column equal to its host
+    column to the bit, pinned slots, the copy on a stream other than the
+    consumer's, no slot grown once each has been used; the feed's copy
+    rate beside a pageable .to() of the same batch."""
+    import queue
+
+    from ray_tpu_torch.rllib.algorithms.impala.impala import (
+        _batch_axis, _concat_fragments)
+    from ray_tpu_torch.rllib.utils.device_feed import DeviceFeed, HostStage
+    rng = np.random.default_rng(SEED + 1)
+    host: "queue.Queue" = queue.Queue()
+    stage = HostStage(FEED_SLOTS, "cuda")
+    feed = DeviceFeed(host, "cuda")
+    ships = []  # each batch's seconds in the feeder's _ship
+    try:
+        if feed._stream.cuda_stream == \
+                torch.cuda.current_stream().cuda_stream:
+            raise AssertionError("the feed copies on the consumer's stream")
+        warm = None
+        for i in range(FEED_BATCHES):
+            shipped = feed.ship_s
+            frags = impala_fragments(np, rng, 2)
+            want = _concat_fragments(frags)
+            staged = stage.assemble(frags, _batch_axis)
+            if not all(seg.is_pinned() for seg in staged.segments.values()):
+                raise AssertionError("a staged segment is not pinned")
+            host.put((staged, i))
+            cols, meta = feed.get(timeout=60)
+            ships.append(feed.ship_s - shipped)
+            if meta != i or set(cols) != set(want):
+                raise AssertionError(f"batch {i}: {meta}, {sorted(cols)}")
+            for k, v in want.items():
+                got = cols[k]
+                if not (got.is_cuda and got.dtype == torch.from_numpy(v).dtype
+                        and torch.equal(got.cpu(), torch.from_numpy(v))):
+                    raise AssertionError(f"batch {i}: column {k} differs")
+            if i == FEED_SLOTS - 1:
+                warm = stage.segments_allocated
+        stats = feed.stats()
+        gbs = feed.bytes_fed / feed.ship_s / 1e9
+    finally:
+        feed.stop()
+    if stage.segments_allocated != warm:
+        raise AssertionError(f"the stage grew after warm-up: {warm} -> "
+                             f"{stage.segments_allocated} segments")
+    nbytes = sum(v.nbytes for v in want.values())
+    # yardsticks: a pageable .to() of the same batch's columns, and one
+    # copy of as many bytes from a pinned buffer (the link's rate)
+    pageable, pinned = [], []
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _ = {k: torch.from_numpy(v).to("cuda") for k, v in want.items()}
+        torch.cuda.synchronize()
+        pageable.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        _ = src.to("cuda", non_blocking=True)
+        torch.cuda.synchronize()
+        pinned.append(time.perf_counter() - t0)
+    steady = float(np.median(ships[FEED_SLOTS:]))
+    print(f"  feed: {FEED_BATCHES} batches of {nbytes / 1e6:.2f} MB, bit "
+          f"for bit, pinned, side stream; {stats['fused_batches']} shipped, "
+          f"{stage.segments_allocated} segments allocated (none after "
+          f"warm-up); the feed's copy {gbs:.2f} GB/s over all "
+          f"({feed.ship_s / FEED_BATCHES * 1e3:.3f} ms a batch; the first "
+          f"{ships[0] * 1e3:.3f} ms, the median after warm-up "
+          f"{steady * 1e3:.3f} ms, {nbytes / steady / 1e9:.2f} GB/s) against "
+          f"a pageable .to() {nbytes / np.median(pageable) / 1e9:.2f} GB/s "
+          f"({np.median(pageable) * 1e3:.3f} ms) and one pinned copy of as "
+          f"many bytes {nbytes / np.median(pinned) / 1e9:.2f} GB/s "
+          f"({np.median(pinned) * 1e3:.3f} ms); feed_xfer_stall_pct "
+          f"{stats['feed_xfer_stall_pct']:.3f} (no learner work: "
+          f"feed_wait_s {stats['feed_wait_s']:.4f}, feed_xfer_s "
+          f"{stats['feed_xfer_s']:.6f}); {kind}; {smi}", flush=True)
+    if stats["fused_batches"] != FEED_BATCHES or \
+            stats["batches_fed"] != FEED_BATCHES:
+        raise AssertionError(f"feed stats {stats}")
+
+
+def run_async(torch, np, config_cls, seconds, runners, kind, smi):
+    """(3) and (4): config_cls (ImpalaConfig or APPOConfig) on MiniPong
+    through build() and algo.train() for `seconds` of wall time, the
+    learner local on the card (learner_device left None) and `runners`
+    CPU EnvRunner actors; then no more sampling, the learner drained, one
+    last weight sync."""
+    import ray_tpu_torch
+    config = config_cls().environment("MiniPong-v0").env_runners(
+        num_env_runners=runners, num_envs_per_env_runner=IMPALA_ENVS,
+        rollout_fragment_length=IMPALA_T).debugging(seed=SEED)
+    name = config_cls.__name__[:-len("Config")]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    algo = config.build()
+    build_s = time.perf_counter() - t0
+    try:
+        results = []
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            results.append(algo.train())
+            if results[-1]["learner_queue_depth"] > \
+                    config.learner_queue_size:
+                raise AssertionError(f"queue depth {results[-1]}")
+        wall = time.perf_counter() - t0
+        # drained: every queued batch shipped and trained
+        deadline = time.perf_counter() + 60
+        while True:
+            if algo._learner_error is not None:
+                raise algo._learner_error
+            feed = algo._feed.stats()
+            with algo._stats_lock:
+                trained, updates = algo._steps_trained, algo._updates_done
+            if algo._train_queue.empty() and \
+                    feed["fused_batches"] == feed["batches_fed"] == updates:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"the learner did not drain: {feed}, "
+                                     f"{updates} updates")
+            time.sleep(0.05)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        actors = algo.env_runners.actors
+        weights = algo.learner_group.get_weights()
+        ray_tpu_torch.get([a.set_weights.remote(weights) for a in actors],
+                          timeout=300)
+        runner_weights = ray_tpu_torch.get(
+            [a.get_weights.remote() for a in actors], timeout=300)
+        states = ray_tpu_torch.get([a.torch_state.remote() for a in actors],
+                                   timeout=120)
+        devices = {str(p.device) for p in
+                   algo.learner_group._local.module.parameters()}
+        sampled = algo._timesteps_total
+    finally:
+        algo.stop()
+    last = results[-1]
+    stats = [r["learner"] for r in results if r["learner"]]
+    busy = feed["learner_busy_s"]
+    print(f"  {name} MiniPong, R = {runners}: build {build_s:.2f} s; "
+          f"{len(results)} iterations in {wall:.2f} s; env steps sampled "
+          f"{sampled} ({sampled / wall:.1f}/s), trained {trained} "
+          f"({trained / wall:.1f}/s); {updates} updates "
+          f"({updates / wall:.2f}/s); learner busy {busy:.3f} s "
+          f"({busy / wall:.1%} of the wall time); feed {json.dumps(feed)}; "
+          f"peak device memory {peak:.3f} GiB; last stats "
+          f"{json.dumps(stats[-1] if stats else {})}; learner params on "
+          f"{devices}; runners {states[0]} (all alike: "
+          f"{all(s == states[0] for s in states)}); {kind}; {smi}",
+          flush=True)
+    if not (len(devices) == 1 and devices.pop().startswith("cuda")):
+        raise AssertionError("the learner's params are not on the card")
+    if any(s != {"cuda_initialized": False, "num_threads": 1}
+           for s in states):
+        raise AssertionError(f"runners: {states}")
+    if not (updates > 0 and trained == config.train_batch_size * updates):
+        raise AssertionError(f"trained {trained} env steps in {updates} "
+                             f"updates of {config.train_batch_size}")
+    if last["num_healthy_env_runners"] != runners:
+        raise AssertionError(f"healthy runners: {last}")
+    if not feed["fused_batches"] == feed["batches_fed"] > 0:
+        raise AssertionError(f"feed: {feed}")
+    if not stats or not all(math.isfinite(v) for st in stats
+                            for v in st.values()):
+        raise AssertionError(f"learner stats: {stats}")
+    if name == "APPO" and not all(0.2 < st["mean_ratio"] < 5.0
+                                  for st in stats):
+        raise AssertionError(f"mean_ratio left (0.2, 5): "
+                             f"{[st['mean_ratio'] for st in stats]}")
+    for w in runner_weights:
+        if not all(np.array_equal(w[k], v) for k, v in weights.items()):
+            raise AssertionError("a runner's weights are not the learner's")
+
+
+def run_impala_cartpole():
+    """(5): IMPALA CartPole at tests/test_rllib.py:139's config
+    (rllib_learning_sweep.impala_cartpole_config: 2 runner actors) with
+    the learner on the card, one seed after another."""
+    from rllib_learning_sweep import (BAR, IMPALA_ITERS,
+                                      impala_cartpole_config, learn_cartpole)
+
+    from ray_tpu_torch.rllib import ImpalaConfig
+    t0 = time.perf_counter()
+    reached = []
+    for seed in IMPALA_CARTPOLE_SEEDS:
+        t1 = time.perf_counter()
+        best, iterations, on_card = learn_cartpole(
+            impala_cartpole_config(ImpalaConfig, seed),
+            lambda algo: all(p.is_cuda for p in
+                             algo.learner_group._local.module.parameters()),
+            iters=IMPALA_ITERS)
+        print(f"  IMPALA CartPole seed {seed}: best episode_reward_mean "
+              f"{best:.2f} in {iterations} iterations "
+              f"({time.perf_counter() - t1:.2f} s, learner on the card: "
+              f"{on_card})", flush=True)
+        if not on_card:
+            raise AssertionError("the CartPole learner is not on the card")
+        if best >= BAR:
+            reached.append(seed)
+    print(f"  IMPALA CartPole: {len(reached)} of "
+          f"{len(IMPALA_CARTPOLE_SEEDS)} seeds reached {BAR} within "
+          f"{IMPALA_ITERS} iterations ({reached}; at least "
+          f"{IMPALA_CARTPOLE_MIN_REACHED} needed), "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if len(reached) < IMPALA_CARTPOLE_MIN_REACHED:
+        raise AssertionError(f"IMPALA CartPole reached {BAR} in "
+                             f"{len(reached)} of "
+                             f"{len(IMPALA_CARTPOLE_SEEDS)} seeds")
 
 
 def profile_step(torch, train_step, state, batch, path):

@@ -1,9 +1,10 @@
 """Algorithm registry (reference rllib/algorithms/registry.py).
 
 The port's counterpart of ray_tpu/rllib/algorithms/registry.py, which
-registers 14 algorithms. Only PPO is ported so far; the JAX package's
-other names raise NotImplementedError naming their ROADMAP rows, so
-`get_algorithm_class("PPO")` and lookups by name keep one surface.
+registers 14 algorithms. PPO, IMPALA and APPO are ported so far; the JAX
+package's other names raise NotImplementedError naming their ROADMAP
+rows, so `get_algorithm_class("PPO")` and lookups by name keep one
+surface.
 """
 
 from __future__ import annotations
@@ -12,8 +13,6 @@ from typing import Tuple
 
 # the JAX package's other registered algorithms -> their ROADMAP rows
 UNPORTED = {
-    "IMPALA": "Queue 1 item 3, 'IMPALA / APPO'",
-    "APPO": "Queue 1 item 3, 'IMPALA / APPO'",
     **{name: "Queue 1 item 6, 'the other algorithms'"
        for name in ("DQN", "SIMPLEQ", "SAC", "TD3", "DDPG", "CQL", "MARWIL",
                     "BC", "ES", "PG", "A2C")},
@@ -21,8 +20,12 @@ UNPORTED = {
 
 
 def _registry():
+    from ray_tpu_torch.rllib.algorithms.appo.appo import APPO, APPOConfig
+    from ray_tpu_torch.rllib.algorithms.impala.impala import (Impala,
+                                                              ImpalaConfig)
     from ray_tpu_torch.rllib.algorithms.ppo.ppo import PPO, PPOConfig
-    return {"PPO": (PPO, PPOConfig)}
+    return {"PPO": (PPO, PPOConfig), "IMPALA": (Impala, ImpalaConfig),
+            "APPO": (APPO, APPOConfig)}
 
 
 def get_algorithm_class(name: str, return_config: bool = False):

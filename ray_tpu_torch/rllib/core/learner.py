@@ -97,6 +97,11 @@ class Learner:
                 self.module.parameters(), lr=self.config.lr, eps=1e-8)
 
     # ---- distributed (gang) build -----------------------------------
+    def data_axis_for(self, key: str) -> int:
+        """Which axis of a batch column is the data-parallel axis (row
+        batches: 0; time-major IMPALA sequences override it to 1)."""
+        return 0
+
     def build_distributed(self, seed: int = 0) -> None:
         """Build after torch.distributed.init_process_group: every rank
         draws the same params from the same seed on the CPU (so they are
@@ -115,7 +120,8 @@ class Learner:
         """Minibatch SGD on this rank's shard: every rank runs the same
         number of steps (collectives wedge otherwise); each step's global
         minibatch is the union of the ranks' local ones."""
-        n = local_batch[next(iter(local_batch))].shape[0]
+        first = next(iter(local_batch))
+        n = local_batch[first].shape[self.data_axis_for(first)]
         local_mb = max(1, (minibatch_size or n * self._world)
                        // self._world)
         return self.update(local_batch, local_mb, num_iters, seed)
@@ -166,23 +172,32 @@ class Learner:
                 zip(flat.split([g.numel() for g in grads]), grads)]
 
     # ---- update loop ------------------------------------------------
-    def update(self, batch: Dict[str, np.ndarray],
+    def _on_device(self, column) -> torch.Tensor:
+        """A batch column on the learner's device: a numpy column
+        crosses once (arrays from the object store are read-only: copied
+        then); a tensor already there (a DeviceFeed's output) is used as
+        it is."""
+        if isinstance(column, torch.Tensor):
+            return column.to(self.device)
+        return torch.from_numpy(np.require(column, None, "CW")).to(
+            self.device)
+
+    def update(self, batch: Dict[str, Any],
                minibatch_size: Optional[int] = None,
                num_iters: int = 1,
                seed: int = 0) -> Dict[str, float]:
         """Minibatch SGD over the batch (reference Learner.update /
-        TorchLearner._update loop): the batch crosses to the device once,
-        each minibatch is gathered there from an index tensor, and the
-        stats are read once, at the end of the sweep."""
+        TorchLearner._update loop): the batch crosses to the device once
+        (numpy columns, or tensors already on the device), each minibatch
+        is gathered there from an index tensor, and the stats are read
+        once, at the end of the sweep."""
         from ray_tpu_torch._private import spans as _spans
         with _spans.span("learner.update", num_iters=num_iters):
             assert self._optimizer is not None, "call build() first"
             n = len(batch["obs"])
             idx = torch.from_numpy(index_matrix(
                 n, minibatch_size or n, num_iters, seed)).to(self.device)
-            # (arrays from the object store are read-only: copied then)
-            dev_batch = {k: torch.from_numpy(np.require(v, None, "CW")).to(
-                self.device) for k, v in batch.items()}
+            dev_batch = {k: self._on_device(v) for k, v in batch.items()}
             extra = self.extra_inputs()
             pending = []
             with self._state_lock:

@@ -26,51 +26,69 @@ _ELASTIC = ("elastic learner gangs (elastic_min_learners, reconfigure) "
             "gangs'")
 
 
+def local_ranks(node_ids: List[str]) -> List[int]:
+    """Each gang rank's index among the gang's ranks on its own node,
+    from the ranks' node ids in rank order: the card a rank claims (as
+    the trainer's workers claim theirs, train/backend_executor.py
+    _share_gpu_visibility)."""
+    seen: Dict[str, int] = {}
+    out = []
+    for node in node_ids:
+        out.append(seen.get(node, 0))
+        seen[node] = out[-1] + 1
+    return out
+
+
 class _MeshLearnerActor:
     """One rank of the learner gang; runs in a fresh worker process (the
-    gang's unique runtime-env pool key), so it sees only the card it
-    claims before anything in it touches CUDA, and joins a clean
-    process group."""
+    gang's unique runtime-env pool key). It starts without touching CUDA:
+    the group reads every rank's node first, and setup() then claims the
+    card of the rank's local rank on that node before anything in the
+    process touches CUDA, and joins a clean process group."""
 
-    def __init__(self, factory: Callable[[], Any], master: str,
-                 world: int, rank: int, seed: int, on_card: bool,
+    def __init__(self, factory: Callable[[], Any], rank: int,
                  gang_id: str = ""):
-        import datetime
-
-        import torch
-        import torch.distributed as dist
-        # Heartbeat sidecar BEFORE init_process_group: the rendezvous
-        # itself is a collective that can wedge (a peer SIGSTOPped
-        # mid-join), and the supervisor can only see that through beats
-        # that started first.
+        self.rank = rank
+        self._factory = factory
         self._heartbeat = None
         if gang_id:
             from ray_tpu_torch.train.heartbeat import HeartbeatSender
             hb = HeartbeatSender(gang_id, rank)
             if hb.start():
                 self._heartbeat = hb
-                hb.set_phase("rendezvous")
+
+    def node_id(self) -> str:
+        import ray_tpu_torch
+        return ray_tpu_torch.get_runtime_context().get_node_id()
+
+    def setup(self, local_rank: int, master: str, world: int, seed: int,
+              on_card: bool) -> None:
+        import datetime
+
+        import torch
+        import torch.distributed as dist
+        # The "rendezvous" phase BEFORE init_process_group: the
+        # rendezvous itself is a collective that can wedge (a peer
+        # SIGSTOPped mid-join), and the supervisor can only see that
+        # through beats that started first.
+        if self._heartbeat is not None:
+            self._heartbeat.set_phase("rendezvous")
         if on_card:
-            # one card a rank, by rank (one gang per node, as the
-            # trainer's split assumes: ROADMAP Queue 1 item 1)
+            # one card a rank: the node's card at the rank's local rank
             from ray_tpu_torch.train.backend_executor import _claim_gpus
-            _claim_gpus([rank])
+            _claim_gpus([local_rank])
             torch.cuda.set_device(0)
         else:
             torch.set_num_threads(1)  # the ranks share the node's cores
         dist.init_process_group(
             backend="nccl" if on_card else "gloo",
-            init_method=f"tcp://{master}", world_size=world, rank=rank,
-            timeout=datetime.timedelta(seconds=300))
-        self.rank = rank
+            init_method=f"tcp://{master}", world_size=world,
+            rank=self.rank, timeout=datetime.timedelta(seconds=300))
         self.world = world
-        self.learner = factory()
+        self.learner = self._factory()
         self.learner.build_distributed(seed=seed)
         if self._heartbeat is not None:
             self._heartbeat.set_phase("ready")
-
-    def ping(self) -> str:
-        return "pong"
 
     def device_report(self) -> Dict[str, Any]:
         """The learner's device, the cards this process sees and the
@@ -83,11 +101,19 @@ class _MeshLearnerActor:
 
     def _local_shard(self, batch: Dict[str, np.ndarray]
                      ) -> Dict[str, np.ndarray]:
-        """Equal per-rank slices of the batch's rows (truncating the
-        remainder so every rank runs identical step counts)."""
-        per = len(next(iter(batch.values()))) // self.world
-        rows = slice(self.rank * per, (self.rank + 1) * per)
-        return {k: v[rows] for k, v in batch.items()}
+        """Equal per-rank slices along each column's data axis
+        (learner.data_axis_for), truncating the remainder so every rank
+        runs identical step counts."""
+        first = next(iter(batch))
+        per = batch[first].shape[self.learner.data_axis_for(first)] \
+            // self.world
+        out = {}
+        for k, v in batch.items():
+            sl = [slice(None)] * v.ndim
+            sl[self.learner.data_axis_for(k)] = slice(self.rank * per,
+                                                      (self.rank + 1) * per)
+            out[k] = v[tuple(sl)]
+        return out
 
     def update(self, batch, minibatch_size, num_iters, seed):
         if self._heartbeat is not None:
@@ -161,8 +187,7 @@ class LearnerGroup:
         actors = [
             actor_cls.options(num_cpus=1, num_gpus=1 if on_card else 0,
                               runtime_env=gang_env).remote(
-                self._factory, master, world, rank, self._seed, on_card,
-                self._gang_uid)
+                self._factory, rank, self._gang_uid)
             for rank in range(world)
         ]
         # Barrier on gang readiness (every rank blocks in
@@ -170,8 +195,13 @@ class LearnerGroup:
         # attempt's actors die HERE: a leaked rank would sit in the
         # rendezvous holding its CPU and card.
         try:
-            ray_tpu_torch.get([a.ping.remote() for a in actors],
-                              timeout=300)
+            nodes = ray_tpu_torch.get([a.node_id.remote() for a in actors],
+                                      timeout=300)
+            ray_tpu_torch.get([
+                a.setup.remote(local_rank, master, world, self._seed,
+                               on_card)
+                for a, local_rank in zip(actors, local_ranks(nodes))],
+                timeout=300)
         except BaseException:
             for a in actors:
                 try:

@@ -95,16 +95,63 @@ def test_rllib_learner_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert not started
 
 
-RLLIB_UNPORTED = ["IMPALA", "APPO", "DQN", "SAC", "TD3", "DDPG", "CQL",
-                  "MARWIL", "BC", "ES", "PG", "A2C", "SimpleQ"]
+def test_impala_learner_defaults_to_cuda_and_raises_without_it(
+        monkeypatch):
+    """IMPALA with no learner device asks for the card, and raises
+    without one before it starts any runner."""
+    from ray_tpu_torch.rllib import ImpalaConfig
+    from ray_tpu_torch.rllib.algorithms.algorithm import EnvRunnerSet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = []
+    monkeypatch.setattr(EnvRunnerSet, "__init__",
+                        lambda *a: started.append(a))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ImpalaConfig().environment("CartPole-v1").env_runners(
+            num_env_runners=2).build()
+    assert not started
+
+
+def test_learner_gang_claims_cards_by_local_rank(monkeypatch):
+    """A gang rank claims the card of its local rank on its node: two
+    ranks on one two-card node take cards 0 and 1, and two ranks on two
+    one-card nodes take card 0 each (by global rank the second would ask
+    a one-card node for its card 1)."""
+    from ray_tpu_torch._private.accelerators.nvidia_gpu import \
+        GPU_FAKE_NUM_ENV
+    from ray_tpu_torch.rllib.core.learner_group import local_ranks
+    from ray_tpu_torch.train.backend_executor import _claim_gpus
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")  # _claim_gpus sets it
+    monkeypatch.setenv(GPU_FAKE_NUM_ENV, "2")
+    assert [_claim_gpus([r]) for r in local_ranks(["a", "a"])] == \
+        [["0"], ["1"]]
+    monkeypatch.setenv(GPU_FAKE_NUM_ENV, "1")
+    assert local_ranks(["a", "b"]) == [0, 0]
+    assert [_claim_gpus([r]) for r in local_ranks(["a", "b"])] == \
+        [["0"], ["0"]]
+    assert local_ranks(["a", "b", "a", "b", "a"]) == [0, 0, 1, 1, 2]
+    with pytest.raises(IndexError):
+        _claim_gpus([1])
+
+
+RLLIB_UNPORTED = ["DQN", "SAC", "TD3", "DDPG", "CQL", "MARWIL", "BC", "ES",
+                  "PG", "A2C", "SimpleQ"]
 
 
 @pytest.mark.parametrize("name", RLLIB_UNPORTED)
 def test_rllib_unported_algorithms_raise_naming_roadmap(name):
     from ray_tpu_torch.rllib import get_algorithm_class, registered_algorithms
-    assert registered_algorithms() == ("PPO",)
+    assert registered_algorithms() == ("APPO", "IMPALA", "PPO")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_algorithm_class(name)
+
+
+@pytest.mark.parametrize("name", ["IMPALA", "APPO"])
+def test_rllib_ported_algorithms_resolve(name):
+    from ray_tpu_torch.rllib import get_algorithm_class
+    algo, config = get_algorithm_class(name.lower(), return_config=True)
+    assert config.algo_class is algo
+    assert algo.__module__ == \
+        f"ray_tpu_torch.rllib.algorithms.{name.lower()}.{name.lower()}"
 
 
 def test_rllib_unported_paths_raise_naming_roadmap():

@@ -56,10 +56,11 @@ VERBATIM = [
     "train/backend.py", "train/checkpoint_manager.py",
     "train/data_parallel_trainer.py", "train/elastic.py",
     "train/heartbeat.py", "train/session.py", "train/worker_group.py",
-    "util/actor_pool.py", "util/locks.py", "util/metrics.py",
-    "util/placement_group.py", "util/queue.py",
+    "util/actor_manager.py", "util/actor_pool.py", "util/locks.py",
+    "util/metrics.py", "util/placement_group.py", "util/queue.py",
     "util/scheduling_strategies.py",
-    "rllib/algorithms/__init__.py", "rllib/algorithms/ppo/__init__.py",
+    "rllib/algorithms/__init__.py", "rllib/algorithms/appo/__init__.py",
+    "rllib/algorithms/impala/__init__.py", "rllib/algorithms/ppo/__init__.py",
     "rllib/core/__init__.py", "rllib/env/__init__.py", "rllib/env/base.py",
     "rllib/env/cartpole.py", "rllib/env/minipong.py",
     "rllib/env/multi_agent.py", "rllib/env/spaces.py",
