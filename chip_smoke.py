@@ -5,9 +5,11 @@
     python3 chip_smoke.py --profile FILE     # also profiles one step and
                                              # writes the table to FILE
                                              # (the trainer's step: to
-                                             # FILE.trainer; an epoch of
-                                             # the PPO learner's update:
-                                             # FILE.rllib), and prints
+                                             # FILE.trainer; the Llama
+                                             # step: FILE.llama; an epoch
+                                             # of the PPO learner's
+                                             # update: FILE.rllib), and
+                                             # prints
                                              # the threads' CPU seconds
                                              # over the timed steps
 
@@ -24,10 +26,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
      one tile, and dQ again at the main shape from DQ_SEEDS; then times
      kernel, plain version and, where one PyTorch call computes the same
      function, that call (for the backward pair, PyTorch's
-     flash-attention backward, which gives dQ, dK and dV).
+     flash-attention backward, which gives dQ, dK and dV). The same
+     check and times again at the Llama-2-7B shape [1, 4096, 32, 128]
+     (one card's row of phase 9), each kernel's "llama" entry.
   4. reference: a narrow model's loss and grads on the card (bf16, through
      the kernels) against the port's CPU path (f32, plain versions) from
-     the same params.
+     the same params; then a narrow Llama-shaped one (2 layers, d_model
+     1024, 8 heads of 128, d_ff 2752, vocab 32000, T 2048, remat "full",
+     the head chunked by 256) the same way.
   5. the slice: GPT-2-125M training steps at batch 16 x 1024 through
      make_train_step, exactly as bench.py runs the JAX package (3 warm-up
      steps, then timed steps on the same batch); the launch counters,
@@ -96,6 +102,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
      0-4: 150 within 250 iterations in all of them
      (IMPALA_CARTPOLE_SEEDS says why). The path launches none of the
      flash kernels (launches_by_path "impala", which must be 0).
+  9. llama: the sharded LM step at Llama-2-7B width as a user takes it:
+     ray_tpu_torch.init(), then TorchTrainer(...).fit() with one worker a
+     card (ScalingConfig(num_workers=torch.cuda.device_count())), whose
+     loop builds LLAMA2_7B (d_model 4096, 32 heads of 128, d_ff 11008,
+     vocab 32000, T 4096; remat "full", the head chunked by 256, bf16
+     compute over f32 params; random weights from SEED) cut to 8 of its
+     32 layers, a mesh make_mesh(MeshConfig(data=1, fsdp=-1)) and
+     make_train_step with Transformer.param_specs and AdamW(1e-4, weight
+     decay 0.1); 3 warm-up and 5 timed steps on one batch of one
+     4,097-token row a card (numpy, from SEED). Its first loss must be ln(32000) + 1/2 (the
+     untied head's logits start with unit variance) +/- 0.5 and fall,
+     its params CUDA DTensors on the mesh, and its launch counters,
+     zeroed just before, must show per step 16 forward launches (remat
+     "full" runs each layer's forward again in the backward) and 8 of each
+     backward kernel. On one card the mesh is fsdp=1 and the step runs no
+     collective; the phase says so.
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -321,6 +343,70 @@ def library_backward(torch, qt, kt, vt, dot, scale):
         scale=scale)
 
 
+def kernel_times(torch, fa, shape, errs, tensors, peak_flops, peak_bw):
+    """({kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms, library_call}}, row_dot ms, SDPA forward + backward ms)
+    at `shape`, on check_kernels' tensors: ms the mean of 50 warm
+    launches, the plain version's of 3."""
+    b, t, h, d = shape
+    q, k, v, do, o, lse, di = tensors
+    scale = d ** -0.5
+    runs = {
+        "flash_fwd": (lambda: fa._flash_fwd_cuda(q, k, v, scale, True),
+                      lambda: fa.flash_fwd_ref(q, k, v, scale, True)),
+        "flash_bwd_dkv": (
+            lambda: fa._flash_bwd_dkv_cuda(q, k, v, do, lse, di, scale, True),
+            lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, di, scale, True)),
+        "flash_bwd_dq": (
+            lambda: fa._flash_bwd_dq_cuda(q, k, v, do, lse, di, scale, True),
+            lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, di, scale, True)),
+    }
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # yardsticks only, never on the port's path: the forward, and
+    # PyTorch's flash-attention backward, which gives dQ, dK and dV in one
+    # call (both backward rows carry its time)
+    bwd_call = library_backward(torch, qt, kt, vt, dot, scale)
+    library = {
+        "flash_fwd": ("scaled_dot_product_attention, causal",
+                      lambda: sdpa(qt, kt, vt, is_causal=True)),
+        "flash_bwd_dkv": (BWD_LIBRARY, bwd_call),
+        "flash_bwd_dq": (BWD_LIBRARY, bwd_call)}
+    lib_ms, records = {}, {}
+    for name, (kern, plain) in runs.items():
+        bound, bound_by = bounds_ms(name, b, t, h, d, peak_flops, peak_bw)
+        call, fn = library[name]
+        if call not in lib_ms:
+            lib_ms[call] = cuda_ms(torch, fn, 50)
+        records[name] = {
+            "max_abs_err": errs[name],
+            "ms": cuda_ms(torch, kern, 50),
+            "plain_ms": cuda_ms(torch, plain, 3),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms[call], "library_call": call,
+        }
+    row_dot_ms = cuda_ms(torch, lambda: fa.row_dot(o, do), 50)
+    # yardstick only: PyTorch's fused attention forward + backward
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg),
+                            dot)
+
+    return records, row_dot_ms, cuda_ms(torch, sdpa_fwd_bwd, 20)
+
+
+def print_backward(records, row_dot_ms, sdpa_ms):
+    dkv, dq = records["flash_bwd_dkv"], records["flash_bwd_dq"]
+    print(f"  backward: dK/dV + dQ + row_dot {dkv['ms']:.4f} + "
+          f"{dq['ms']:.4f} + {row_dot_ms:.4f} = "
+          f"{dkv['ms'] + dq['ms'] + row_dot_ms:.4f} ms; {BWD_LIBRARY} "
+          f"{dkv['library_ms']:.4f} ms", flush=True)
+    print(f"  sdpa fwd+bwd {sdpa_ms:.4f} ms; kernels fwd+dkv+dq "
+          f"{sum(r['ms'] for r in records.values()):.4f} ms", flush=True)
+
+
 def build_report(build, log, src, out=None):
     """(one "D=<d>: registers, spills" entry per kernel instantiation,
     spilled bytes, SASS counts) of one library's nvcc -Xptxas -v log, the
@@ -342,6 +428,31 @@ def build_report(build, log, src, out=None):
         if "Potential Performance Loss" in line:   # e.g. serialised wgmma
             used.append(f"{name}: {line.split('Loss: ')[-1].strip()}")
     return used, spilled, build.sass(src, out)
+
+
+def reference_check(torch, Transformer, cfg, tokens_shape, gen):
+    """cfg's loss and grads on the card (bf16, the kernels) against the
+    port's CPU path (f32, plain versions) from the same params and
+    tokens: 2e-2 on the loss, 5e-2 on each grad's relative norm error."""
+    m_gpu = Transformer(cfg, seed=SEED)
+    m_cpu = Transformer(cfg.replace(dtype="float32"), device="cpu")
+    m_cpu.load_state_dict({n: p.cpu() for n, p in
+                           m_gpu.state_dict().items()})
+    tok = torch.randint(0, cfg.vocab_size, tokens_shape, generator=gen,
+                        device="cuda")
+    l_gpu = m_gpu.loss({"tokens": tok})
+    l_gpu.backward()
+    l_cpu = m_cpu.loss({"tokens": tok.cpu()})
+    l_cpu.backward()
+    loss_err = abs(l_gpu.item() - l_cpu.item()) / abs(l_cpu.item())
+    if not (math.isfinite(l_gpu.item()) and loss_err < 2e-2):
+        raise AssertionError(f"loss {l_gpu.item()} vs {l_cpu.item()}")
+    worst = grads_close(torch, m_gpu, m_cpu, 5e-2)
+    print(f"  d_model {cfg.d_model}, {cfg.n_layers} layers, tokens "
+          f"{list(tokens_shape)}, remat {cfg.remat}, loss_chunk "
+          f"{cfg.loss_chunk}: loss bf16 card {l_gpu.item():.5f} vs f32 CPU "
+          f"{l_cpu.item():.5f} (rel {loss_err:.2e}); worst grad rel norm "
+          f"err {worst:.2e}", flush=True)
 
 
 def grads_close(torch, model_gpu, model_cpu, tol):
@@ -371,7 +482,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from ray_tpu_torch._device import gpu_info, peak_rates
-    from ray_tpu_torch.models import GPT2_125M, Transformer
+    from ray_tpu_torch.models import GPT2_125M, LLAMA2_7B, Transformer
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.parallel.train_step import adamw, make_train_step
@@ -413,8 +524,8 @@ def main(argv=None) -> int:
         check_kernels(torch, fa, 4, 520, 8, 64, gen)     # D = 64, ragged
         b, t, h, d = BATCH, GPT2_125M.max_seq_len, GPT2_125M.n_heads, \
             GPT2_125M.head_dim
-        errs, (q, k, v, do, o, lse, di) = check_kernels(
-            torch, fa, b, t, h, d, gen, qk_views=False)
+        errs, tensors = check_kernels(torch, fa, b, t, h, d, gen,
+                                      qk_views=False)
         # the causal flag off (ragged T), and T inside one 128-row tile
         check_kernels(torch, fa, 2, 1000, 3, 128, gen, causal=False)
         check_kernels(torch, fa, 2, 100, 3, 128, gen)
@@ -425,69 +536,27 @@ def main(argv=None) -> int:
             check_kernels(torch, fa, b, t, h, d,
                           torch.Generator(device="cuda").manual_seed(seed),
                           qk_views=False, names=("flash_bwd_dq",))
-        scale = d ** -0.5
-        runs = {
-            "flash_fwd": (lambda: fa._flash_fwd_cuda(q, k, v, scale, True),
-                          lambda: fa.flash_fwd_ref(q, k, v, scale, True)),
-            "flash_bwd_dkv": (
-                lambda: fa._flash_bwd_dkv_cuda(q, k, v, do, lse, di, scale,
-                                               True),
-                lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, di, scale,
-                                             True)),
-            "flash_bwd_dq": (
-                lambda: fa._flash_bwd_dq_cuda(q, k, v, do, lse, di, scale,
-                                              True),
-                lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, di, scale,
-                                            True)),
-        }
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        dot = do.transpose(1, 2)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        # yardsticks only, never on the port's path: the forward, and
-        # PyTorch's flash-attention backward, which gives dQ, dK and dV in
-        # one call (both backward rows carry its time)
-        bwd_call = library_backward(torch, qt, kt, vt, dot, scale)
-        library = {
-            "flash_fwd": ("scaled_dot_product_attention, causal",
-                          lambda: sdpa(qt, kt, vt, is_causal=True)),
-            "flash_bwd_dkv": (BWD_LIBRARY, bwd_call),
-            "flash_bwd_dq": (BWD_LIBRARY, bwd_call)}
-        lib_ms = {}
-        for name, (kern, plain) in runs.items():
-            bound, bound_by = bounds_ms(name, b, t, h, d, peak_flops,
-                                        peak_bw)
-            call, fn = library[name]
-            if call not in lib_ms:
-                lib_ms[call] = cuda_ms(torch, fn, 50)
-            records[name] = {
-                "max_abs_err": errs[name],
-                "ms": cuda_ms(torch, kern, 50),
-                "plain_ms": cuda_ms(torch, plain, 3),
-                "bound_ms": bound, "bound_by": bound_by,
-                "library_ms": lib_ms[call], "library_call": call,
-                "sass": sass[KERNEL_SOURCES[name][0].rsplit("/", 1)[1]],
-            }
-            print(f"  {name}: {json.dumps(records[name])}", flush=True)
-        row_dot_ms = cuda_ms(torch, lambda: fa.row_dot(o, do), 50)
-        print(f"  backward: dK/dV + dQ + row_dot "
-              f"{records['flash_bwd_dkv']['ms']:.4f} + "
-              f"{records['flash_bwd_dq']['ms']:.4f} + {row_dot_ms:.4f} = "
-              f"{records['flash_bwd_dkv']['ms'] + records['flash_bwd_dq']['ms'] + row_dot_ms:.4f}"
-              f" ms; {BWD_LIBRARY} {lib_ms[BWD_LIBRARY]:.4f} ms", flush=True)
-        # yardstick only: PyTorch's fused attention forward + backward
-        qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg),
-                                dot)
-
-        print(f"  sdpa fwd+bwd {cuda_ms(torch, sdpa_fwd_bwd, 20):.4f} ms; "
-              "kernels fwd+dkv+dq "
-              f"{sum(r['ms'] for r in records.values()):.4f} ms", flush=True)
-        # fn (the library backward) holds views of q, k, v, do and its own
-        # forward's output: free them before the slice's peak memory
-        del q, k, v, do, o, lse, di, qt, kt, vt, qg, kg, vg, dot, bwd_call, \
-            library, fn
+        records, row_dot_ms, sdpa_ms = kernel_times(
+            torch, fa, (b, t, h, d), errs, tensors, peak_flops, peak_bw)
+        del tensors
+        for name, rec in records.items():
+            rec["sass"] = sass[KERNEL_SOURCES[name][0].rsplit("/", 1)[1]]
+            print(f"  {name}: {json.dumps(rec)}", flush=True)
+        print_backward(records, row_dot_ms, sdpa_ms)
+        # the Llama-2-7B shape of phase "llama": one card's row, 32 heads
+        shape = (1, LLAMA2_7B.max_seq_len, LLAMA2_7B.n_heads,
+                 LLAMA2_7B.head_dim)
+        errs, tensors = check_kernels(torch, fa, *shape, gen,
+                                      qk_views=False)
+        llama, row_dot_ms, sdpa_ms = kernel_times(
+            torch, fa, shape, errs, tensors, peak_flops, peak_bw)
+        del tensors
+        for name, rec in llama.items():
+            records[name]["llama"] = {"shape": list(shape), **rec}
+            print(f"  {name} at {list(shape)}: {json.dumps(rec)}",
+                  flush=True)
+        print_backward(llama, row_dot_ms, sdpa_ms)
+        torch.cuda.empty_cache()
 
     with phase("reference"):
         # a narrow model that takes the same kernels (head_dim 128, ragged
@@ -495,26 +564,14 @@ def main(argv=None) -> int:
         small = GPT2_125M.replace(d_model=256, n_heads=2, d_ff=512,
                                   n_layers=2, vocab_size=512, loss_chunk=0,
                                   attention_impl="auto")
-        m_gpu = Transformer(small, seed=SEED)
-        m_cpu = Transformer(small.replace(dtype="float32"), device="cpu")
-        m_cpu.load_state_dict({n: p.cpu() for n, p in
-                               m_gpu.state_dict().items()})
-        tok = torch.randint(0, small.vocab_size, (2, 301), generator=gen,
-                            device="cuda")
-        l_gpu = m_gpu.loss({"tokens": tok})
-        l_gpu.backward()
-        l_cpu = m_cpu.loss({"tokens": tok.cpu()})
-        l_cpu.backward()
-        loss_err = abs(l_gpu.item() - l_cpu.item()) / abs(l_cpu.item())
-        # bf16 compute against f32: 2e-2 on the loss, 5e-2 on each grad's
-        # relative norm error
-        if not (math.isfinite(l_gpu.item()) and loss_err < 2e-2):
-            raise AssertionError(f"loss {l_gpu.item()} vs {l_cpu.item()}")
-        worst = grads_close(torch, m_gpu, m_cpu, 5e-2)
-        print(f"  loss bf16 card {l_gpu.item():.5f} vs f32 CPU "
-              f"{l_cpu.item():.5f} (rel {loss_err:.2e}); worst grad rel "
-              f"norm err {worst:.2e}", flush=True)
-        del m_gpu, m_cpu
+        reference_check(torch, Transformer, small, (2, 301), gen)
+        # a narrow Llama-shaped model through remat "full" and the chunked
+        # head, at T 2048
+        narrow = LLAMA2_7B.replace(n_layers=2, d_model=1024, n_heads=8,
+                                   n_kv_heads=None, d_ff=2752,
+                                   max_seq_len=2048, attention_impl="auto",
+                                   remat=True, loss_chunk=256)
+        reference_check(torch, Transformer, narrow, (1, 2049), gen)
 
     with phase("slice"):
         cfg = GPT2_125M.replace(remat=False, attention_impl="auto",
@@ -586,6 +643,13 @@ def main(argv=None) -> int:
             records[name]["launches_by_path"] = {
                 "slice": records[name]["launches"],
                 "trainer": trainer_launches[name]}
+
+    with phase("llama"):
+        llama_launches = run_llama(
+            kind, smi, args.profile and os.path.abspath(args.profile)
+            + ".llama")
+        for name in records:
+            records[name]["launches_by_path"]["llama"] = llama_launches[name]
 
     with phase("rllib"):
         fa.reset_launches()
@@ -797,6 +861,141 @@ def run_trainer(cfg, tokens, slice_first, slice_ms, kind, smi, profile):
     if launches != {n: want for n in launches}:
         raise AssertionError(f"expected {cfg.n_layers} launches of each "
                              f"kernel per step ({want}), got {launches}")
+    return launches
+
+
+# phase "llama": Llama-2-7B at full width, cut to LLAMA_LAYERS of its 32
+# layers (all 32 need ~108 GB of f32 params, grads and Adam moments, more
+# than one card holds; 8 need 30.1 GB), one 4,097-token row a card
+LLAMA_LAYERS = 8
+LLAMA_WARMUP, LLAMA_TIMED = 3, 5
+
+
+def llama_loop(config):
+    """The train loop of phase "llama", in each card's worker: the
+    sharded step through make_train_step on a data=1 x fsdp=world mesh;
+    rank 0 reports."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import LLAMA2_7B, Transformer
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step
+
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"process group backend {dist.get_backend()}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the driver has it
+    torch.backends.cudnn.allow_tf32 = False
+    world = dist.get_world_size()
+    cfg = LLAMA2_7B.replace(n_layers=LLAMA_LAYERS, attention_impl="auto")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, seed=SEED)
+    mesh = make_mesh(MeshConfig(data=1, fsdp=-1))
+    init_state, train_step = make_train_step(
+        lambda p, b: model.loss(b, mesh=mesh), Transformer.param_specs(cfg),
+        mesh, optimizer=adamw(1e-4, weight_decay=0.1))
+    state = init_state(model)
+    for name, p in state["params"].items():
+        if not (isinstance(p, DTensor) and p.device_mesh == mesh
+                and p.to_local().is_cuda):
+            raise AssertionError(f"param {name} is not a CUDA DTensor on "
+                                 f"the mesh")
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (world, cfg.max_seq_len + 1))}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses = []
+    for _ in range(LLAMA_WARMUP):
+        state, metrics = train_step(state, batch)
+        losses.append(metrics["loss"].item())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = []
+    for _ in range(LLAMA_TIMED):
+        state, metrics = train_step(state, batch)
+        timed.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    if config["profile"]:   # every rank steps: the step's collectives
+        if dist.get_rank() == 0:
+            profile_step(torch, train_step, state, batch, config["profile"])
+        else:
+            train_step(state, batch)
+    train.report({
+        "world": world, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+        "build_s": build_s, "losses": losses + [x.item() for x in timed],
+        "grad_norm": metrics["grad_norm"].item(),
+        "step_ms": dt / LLAMA_TIMED * 1e3,
+        "tokens_s": world * cfg.max_seq_len * LLAMA_TIMED / dt,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "params": sum(p.numel() for p in state["params"].values()),
+        "launches": launches})
+
+
+def run_llama(kind, smi, profile):
+    """ray_tpu_torch.init() and TorchTrainer.fit() with a worker a card
+    running llama_loop; checks what rank 0 reports and returns its
+    launch counts."""
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    cards = torch.cuda.device_count()
+    root = tempfile.mkdtemp(prefix="chip_smoke_llama_")
+    try:
+        ray_tpu_torch.init(num_cpus=cards + 1, _session_root=root)
+        t0 = time.perf_counter()
+        result = TorchTrainer(
+            llama_loop, train_loop_config={"profile": profile},
+            scaling_config=ScalingConfig(num_workers=cards),
+            run_config=RunConfig(storage_path=os.path.join(root, "results"),
+                                 name="llama")).fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    if result.error is not None:
+        raise AssertionError(f"llama run failed: {result.error!r}")
+    m = result.metrics
+    losses, launches = m["losses"], m["launches"]
+    steps = len(losses)
+    print(f"  {m['world']} worker(s), mesh {m['mesh']}"
+          + ("; one card: fsdp=1, so the step runs no collective"
+             if m["world"] == 1 else "")
+          + f"; {m['params'] / 1e9:.3f}B params ({LLAMA_LAYERS} of 32 "
+          f"layers); fit() {fit_s:.1f} s, model, mesh and state "
+          f"{m['build_s']:.1f} s", flush=True)
+    print(f"  losses {['%.4f' % x for x in losses]}, grad_norm "
+          f"{m['grad_norm']:.4f}", flush=True)
+    print(f"  step {m['step_ms']:.2f} ms, {m['tokens_s']:.1f} tokens/s, "
+          f"peak memory {m['peak_gib']:.2f} GiB, launches {launches}; "
+          f"{kind}; {smi}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    # the untied head's logits start with unit variance (the final norm
+    # gives rows of unit RMS, lm_head has std d^-1/2, as in the JAX
+    # init), which adds 1/2 to the ln(vocab) of uniform logits
+    if abs(losses[0] - (math.log(32000) + 0.5)) > 0.5:
+        raise AssertionError(f"initial loss {losses[0]} is not near "
+                             f"ln(32000) + 1/2")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss does not fall: {losses}")
+    # remat "full" runs each layer's forward twice a step
+    want = {"flash_fwd": 2 * LLAMA_LAYERS * steps,
+            "flash_bwd_dkv": LLAMA_LAYERS * steps,
+            "flash_bwd_dq": LLAMA_LAYERS * steps}
+    if launches != want:
+        raise AssertionError(f"expected launches {want} over {steps} steps, "
+                             f"got {launches}")
     return launches
 
 

@@ -1,9 +1,9 @@
 """Transformer configurations (counterpart of ray_tpu/models/configs.py).
 
 A copy of the JAX package's dataclass and presets, so that the port
-imports nothing of ray_tpu. Fields that only the JAX package's compiler
-reads (scan_unroll, remat_policy) are kept so that a config means the
-same thing in both; the port ignores them.
+imports nothing of ray_tpu. A field that only the JAX package's compiler
+reads (scan_unroll) is kept so that a config means the same thing in
+both; the port ignores it.
 """
 
 from __future__ import annotations

@@ -195,15 +195,34 @@ def row_dot(o, do):
     return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+@torch.library.custom_op(
+    "ray_tpu_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, float scale, bool causal) "
+           "-> (Tensor, Tensor)")
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flash_fwd as a registered operator: an autograd.Function over a
+    ctypes launch is invisible to a dispatch-level remat policy, an
+    operator is not, so the "dots" policy (models/transformer.py) saves
+    its output by name, as JAX's saves the "attn_out" checkpoint_name."""
+    return flash_fwd(q, k, v, scale, causal)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, scale, causal):
+    b, t, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, t), dtype=torch.float32)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """o = attention(q, k, v) on [B, T, H, D] with equal head counts.
 
-    Forward saves (q, k, v, o, lse); backward computes di, then dK/dV,
-    then dQ, through the wrappers above."""
+    Forward (the flash_fwd operator) saves (q, k, v, o, lse); backward
+    computes di, then dK/dV, then dQ, through the wrappers above."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, causal: bool):
-        o, lse = flash_fwd(q, k, v, scale, causal)
+        o, lse = flash_fwd_op(q, k, v, scale, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.causal = scale, causal
         return o

@@ -1,19 +1,23 @@
 """Device mesh over the process group's ranks (counterpart of
 ray_tpu/parallel/mesh.py).
 
-The JAX package's mesh is a `jax.sharding.Mesh` over named axes; the
-port's is a `torch.distributed` DeviceMesh over the ranks of the default
-process group (TorchTrainer starts one), with the same six axis names in
-the same order. Only the `data` axis is ported: every other axis must
-have size 1, because the sharded train step (FSDP, tensor parallelism)
-is a later slice (ROADMAP.md, Queue 1 item 2).
+The JAX package's mesh is a `jax.sharding.Mesh` over six named axes;
+the port's is a `torch.distributed` DeviceMesh over the ranks of the
+default process group (TorchTrainer starts one) with the axes it runs:
+`data`, `fsdp` and `tensor`, in the JAX order (PORTED_AXES). The `seq`,
+`pipe` and `expert` axes must have size 1 until ring and Ulysses
+attention, the pipeline and MoE are ported (ROADMAP.md, Queue 1 item
+4), and leaving those size-1 axes out places every rank where the JAX
+mesh does. It also keeps DTensor's sharding propagation cheap: it
+enumerates strategies over every mesh dim, and one pointwise op on a
+six-dim mesh took over 25 s on the CPU where three dims take 0.2 s.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 
@@ -71,28 +75,64 @@ class MeshConfig:
         return sizes
 
 
-def check_data_only(sizes: Dict[str, int]) -> None:
-    """Raise unless every axis but `data` has size 1."""
-    other = {a: s for a, s in sizes.items() if a != AXIS_DATA and s != 1}
+# the axes whose parallelism the port runs; the others must have size 1
+PORTED_AXES: Tuple[str, ...] = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR)
+
+
+def check_ported_axes(sizes: Mapping[str, int]) -> None:
+    """Raise unless every axis the port does not run yet has size 1."""
+    other = {a: s for a, s in sizes.items()
+             if a not in PORTED_AXES and s != 1}
     if other:
         raise NotImplementedError(
-            f"mesh axes {other}: the sharded train step (FSDP, tensor, "
-            f"sequence, expert and pipeline axes) is not ported yet "
-            f"(ROADMAP.md, Queue 1 item 2); only the data axis is")
+            f"mesh axes {other}: sequence, pipeline and expert parallelism "
+            f"are not ported yet (ROADMAP.md, Queue 1 item 4); the data, "
+            f"fsdp and tensor axes are")
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes with no devices and no process group
+    (counterpart of jax.sharding.AbstractMesh): what the sharding rules
+    read, so they resolve without a process group."""
+
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+def get_abstract_mesh(config: MeshConfig, n_devices: int) -> AbstractMesh:
+    """The mesh `make_mesh(config)` would build over `n_devices` ranks,
+    shape only."""
+    check_ported_axes(config.axis_sizes())
+    sizes = config.resolve(n_devices)
+    return AbstractMesh(PORTED_AXES, tuple(sizes[a] for a in PORTED_AXES))
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """axis name -> size of a DeviceMesh from make_mesh or an
+    AbstractMesh."""
+    if isinstance(mesh, AbstractMesh):
+        return mesh.shape
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def make_mesh(config: Optional[MeshConfig] = None, *,
               device: DeviceLike = None):
-    """A DeviceMesh with the standard axis names over every rank of the
-    default process group, in order. Its device type is CUDA unless the
+    """A DeviceMesh over every rank of the default process group with the
+    axes PORTED_AXES, sized by `config`. Its device type is CUDA unless the
     caller names another (``device="cpu"`` over a gloo group), and CUDA
-    raises without a card."""
+    raises without a card. The seq, pipe and expert axes raise above
+    size 1 (Queue 1 item 4)."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
     config = config or MeshConfig()
-    check_data_only(config.axis_sizes())
+    check_ported_axes(config.axis_sizes())
     dev = resolve_device(device)
     if not dist.is_initialized():
         raise RuntimeError(
@@ -100,6 +140,6 @@ def make_mesh(config: Optional[MeshConfig] = None, *,
             "TorchTrainer's workers have one")
     world = dist.get_world_size()
     sizes = config.resolve(world)
-    shape = tuple(sizes[a] for a in MESH_AXIS_ORDER)
+    shape = tuple(sizes[a] for a in PORTED_AXES)
     return DeviceMesh(dev.type, torch.arange(world).reshape(shape),
-                      mesh_dim_names=MESH_AXIS_ORDER)
+                      mesh_dim_names=PORTED_AXES)

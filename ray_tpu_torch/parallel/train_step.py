@@ -5,30 +5,46 @@ equal to optax.adamw. The JAX step is one jitted function with sharded
 state; here PyTorch runs eagerly and updates the params in place (so
 ``state["params"]`` holds the live tensors the loss reads).
 
-With a data mesh of size D (parallel.make_mesh) the step keeps the JAX
-contract: every rank passes the global batch, and the step is the one
-the JAX package computes on the whole of it. Rank r takes rows
-[r B/D, (r+1) B/D). The loss is a mean, as Transformer.loss's is: over
-the batch's "mask" where it holds one, else over its rows. So each rank
-weighs its loss and grads by its share of the global denominator (its
-mask sum over the global one, which every rank reads from the global
-batch; B/D over B unmasked) and one all-reduce sums them, before the
-norm and the update: every rank's params stay equal, and the loss is
-the global one even where the ranks' masks differ. At D = 1 there is no
-collective, as XLA emits none. Sharded axes (FSDP, tensor) come with a
-later slice of the port.
+Every rank passes the global batch, and the step is the one the JAX
+package computes on the whole of it. The batch splits over the data
+axis, or with param_specs over the rules' "batch" axes (data and fsdp):
+the rank at position r of D such ranks takes rows [r B/D, (r+1) B/D), and
+ranks that differ only in their tensor coordinate take the same rows.
+The loss is a mean, as Transformer.loss's is: over the batch's "mask"
+where it holds one, else over its rows. So each rank weighs its loss and
+grads by its share of the global denominator (its mask sum over the
+global one, which every rank reads from the global batch; B/D over B
+unmasked), and the sum over the ranks is the global loss and grad even
+where the ranks' masks differ.
+
+- mesh=None: the single-device step.
+- A data mesh, param_specs None: every param replicated; one all-reduce
+  sums the weighed grads and the loss, before the norm and the update.
+  At D = 1 there is no collective, as XLA emits none.
+- param_specs on a mesh (data, fsdp, tensor): init_state places each
+  param as a DTensor by the logical rules (parallel/sharding.py), and
+  the optimizer's moments, created like their params, take the same
+  placements (torch.optim keys its state by the param, so a moment is
+  matched to its param, never by shape). The loss's backward weighs by
+  the share; the model's gathers reduce-scatter each grad to its
+  param's placements, so the grad norm is one all-reduce of the shards'
+  squares.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.parallel.mesh import (AXIS_DATA, MESH_AXIS_ORDER,
-                                         check_data_only)
+from ray_tpu_torch.parallel.mesh import AXIS_DATA, PORTED_AXES, mesh_shape
+from ray_tpu_torch.parallel.sharding import (ShardingRules, flatten_specs,
+                                             logical_sharding, place)
 
 OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
 
@@ -55,31 +71,49 @@ def make_train_step(
         mesh=None,
         *,
         optimizer: Optional[OptimizerFactory] = None,
+        rules: Optional[ShardingRules] = None,
         device: DeviceLike = None,
 ) -> Tuple[Callable, Callable]:
     """Build (init_state, train_step).
 
-    loss_fn(params, batch) -> scalar loss (or (loss, aux dict)), where
-    params is the name -> tensor dict given to init_state (e.g.
-    ``dict(model.named_parameters())``). init_state(params) -> state dict;
-    train_step(state, batch) -> (state, {"loss", "grad_norm", "step"}).
-    param_specs (logical sharding) is accepted and not used yet: on a
-    data mesh every param is replicated. mesh=None is the single-device
-    step; a mesh with any axis but `data` above size 1 raises.
+    loss_fn(params, batch) -> scalar loss (or (loss, aux dict)) of this
+    rank's rows, where params is the name -> tensor dict of the state
+    (e.g. ``lambda p, b: model.loss(b, mesh=mesh)``).
+    init_state(params) -> state dict, params being a module or its
+    ``dict(module.named_parameters())``; train_step(state, batch) ->
+    (state, {"loss", "grad_norm", "step"}).
+
+    With param_specs (a nested dict of logical specs whose dotted names
+    are the params', e.g. Transformer.param_specs(cfg)) on a mesh,
+    init_state places each param by `rules`: given the module, it puts
+    plain params on the mesh and into the module; given a dict, the
+    params must be placed already (params_from_jax(mesh=...)). A mesh
+    with an fsdp or tensor axis needs param_specs.
     """
     dev = resolve_device(device)
-    group, rank, size = (None, 0, 1) if mesh is None \
-        else _data_axis(mesh, dev)
     if optimizer is None:
         optimizer = adamw(3e-4, weight_decay=0.01)
+    if mesh is not None:
+        _check_mesh(mesh, dev)
+    if param_specs is not None and mesh is not None:
+        return _sharded_step(loss_fn, flatten_specs(param_specs), mesh,
+                             rules or ShardingRules(), optimizer, dev)
+    if mesh is None:
+        group, rank, size = None, 0, 1
+    else:
+        other = {a: s for a, s in mesh_shape(mesh).items()
+                 if a != AXIS_DATA and s != 1}
+        if other:
+            raise ValueError(f"mesh axes {other} shard the params: pass "
+                             f"param_specs")
+        group, rank, size = (mesh.get_group(AXIS_DATA),
+                             mesh.get_local_rank(AXIS_DATA),
+                             mesh_shape(mesh)[AXIS_DATA])
 
-    def init_state(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        params = dict(params)
+    def init_state(params) -> Dict[str, Any]:
+        params = _named(params)
         for name, p in params.items():
-            if p.device.type != dev.type or (
-                    dev.index is not None and p.device.index != dev.index):
-                raise ValueError(f"param {name} is on {p.device}, the step "
-                                 f"runs on {dev}")
+            _check_device(name, p, dev)
         return {"params": params,
                 "opt_state": optimizer(list(params.values())),
                 "step": 0}
@@ -87,62 +121,160 @@ def make_train_step(
     def train_step(state, batch):
         params = state["params"]
         if size > 1:
-            total = _loss_denominator(batch)
-            batch = _rows_of_rank(batch, rank, size)
-            share = _loss_denominator(batch) / total
+            batch, share = _rows_and_share(batch, rank, size)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         for p in params.values():
             p.grad = None
         out = loss_fn(params, batch)
         loss, aux = out if isinstance(out, tuple) else (out, {})
         loss.backward()
-        grads = []
-        for p in params.values():
-            if p.grad is None:  # unused param: a zero grad, as jax.grad gives
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
+        grads = _grads(params)
         if size > 1:
             loss = _all_reduce_weighted(grads, loss.detach(), share, group)
         # global L2 norm over every grad, before the update
         gnorm = torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
-        state["opt_state"].step()
-        step = state["step"] + 1
-        new_state = {"params": params, "opt_state": state["opt_state"],
-                     "step": step}
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "step": step,
-                   **aux}
-        return new_state, metrics
+        return _update(state, loss, gnorm, aux)
 
     return init_state, train_step
 
 
-def _data_axis(mesh, dev: torch.device):
-    """(group, rank, size) of the mesh's data axis; raises for a mesh
-    the data-parallel step cannot run on."""
+def _sharded_step(loss_fn, specs, mesh, rules, optimizer, dev):
+    """(init_state, train_step) with the params placed on the mesh."""
+    sizes = mesh_shape(mesh)
+    batch = rules.mesh_axes("batch")
+    batch = tuple(batch) if isinstance(batch, tuple) else (batch,)
+    coord = dict(zip(PORTED_AXES, mesh.get_coordinate()))
+    # this rank's position among the batch's row blocks, first axis major
+    rank, size = 0, 1
+    for a in batch:
+        n = sizes.get(a, 1)
+        rank, size = rank * n + coord.get(a, 0), size * n
+    groups = [mesh.get_group(a) for a in batch if sizes.get(a, 1) > 1]
+    world = math.prod(sizes.values())
+
+    def init_state(params) -> Dict[str, Any]:
+        module = params if isinstance(params, nn.Module) else None
+        params = _named(params)
+        if set(params) != set(specs):
+            raise ValueError(f"params {sorted(params)} and param_specs "
+                             f"{sorted(specs)} differ")
+        placed = {}
+        for name, p in params.items():
+            _check_device(name, p, dev)
+            placements = logical_sharding(specs[name], mesh, rules,
+                                          shape=tuple(p.shape))
+            if isinstance(p, DTensor):
+                if p.device_mesh != mesh or tuple(p.placements) != placements:
+                    raise ValueError(
+                        f"param {name} is placed {tuple(p.placements)} on "
+                        f"{p.device_mesh}; the rules give {placements} on "
+                        f"{mesh}")
+                placed[name] = p
+            elif module is None:
+                raise ValueError(
+                    f"param {name} is not on the mesh: pass the module to "
+                    f"init_state, or place the params first")
+            else:
+                placed[name] = nn.Parameter(
+                    place(p.detach(), mesh, placements),
+                    requires_grad=p.requires_grad)
+        if module is not None:
+            module.load_state_dict(placed, assign=True)
+            placed = dict(module.named_parameters())
+        return {"params": placed,
+                "opt_state": optimizer(list(placed.values())),
+                "step": 0}
+
+    def train_step(state, global_batch):
+        params = state["params"]
+        local, share = _rows_and_share(global_batch, rank, size)
+        local = {k: torch.as_tensor(v, device=dev) for k, v in local.items()}
+        for p in params.values():
+            p.grad = None
+        out = loss_fn(params, local)
+        loss, aux = out if isinstance(out, tuple) else (out, {})
+        (loss * share if size > 1 else loss).backward()
+        grads = _grads(params)
+        loss = loss.detach() * share
+        for g in groups:
+            dist.all_reduce(loss, group=g)
+        # each shard's squares once: a shard held by r ranks counts 1/r
+        # from each of them
+        sq = torch.zeros((), dtype=torch.float32, device=dev)
+        for p, g in zip(params.values(), grads):
+            if tuple(g.placements) != tuple(p.placements):
+                raise RuntimeError(f"a grad placed {g.placements} for a "
+                                   f"param placed {p.placements}")
+            copies = math.prod(n for n, pl in zip(sizes.values(),
+                                                  g.placements)
+                               if not pl.is_shard())
+            sq += torch.linalg.vector_norm(
+                g.to_local(), dtype=torch.float32) ** 2 / copies
+        if world > 1:
+            dist.all_reduce(sq)
+        return _update(state, loss, torch.sqrt(sq), aux)
+
+    return init_state, train_step
+
+
+def _update(state, loss, gnorm, aux):
+    state["opt_state"].step()
+    step = state["step"] + 1
+    new_state = {"params": state["params"], "opt_state": state["opt_state"],
+                 "step": step}
+    metrics = {"loss": loss.detach(), "grad_norm": gnorm, "step": step,
+               **aux}
+    return new_state, metrics
+
+
+def _named(params) -> Dict[str, torch.Tensor]:
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def _check_device(name, p, dev):
+    if p.device.type != dev.type or (
+            dev.index is not None and p.device.index != dev.index):
+        raise ValueError(f"param {name} is on {p.device}, the step runs on "
+                         f"{dev}")
+
+
+def _grads(params):
+    grads = []
+    for p in params.values():
+        if p.grad is None:  # unused param: a zero grad, as jax.grad gives
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    return grads
+
+
+def _check_mesh(mesh, dev: torch.device):
+    """Raise for a mesh the step cannot run on."""
     names = tuple(mesh.mesh_dim_names or ())
-    if names != MESH_AXIS_ORDER:
+    if names != PORTED_AXES:
         raise ValueError(f"a mesh from parallel.make_mesh is needed (axes "
-                         f"{MESH_AXIS_ORDER}), got axes {names}")
-    check_data_only(dict(zip(names, mesh.shape)))
+                         f"{PORTED_AXES}), got axes {names}")
     if mesh.device_type != dev.type:
         raise ValueError(f"the mesh is over {mesh.device_type} and the "
                          f"step runs on {dev}")
-    return (mesh.get_group(AXIS_DATA), mesh.get_local_rank(AXIS_DATA),
-            mesh.size(MESH_AXIS_ORDER.index(AXIS_DATA)))
 
 
-def _rows_of_rank(batch: Dict[str, Any], rank: int, size: int):
-    """Rank `rank`'s rows of the global batch: [r B/D, (r+1) B/D)."""
+def _rows_and_share(batch: Dict[str, Any], rank: int, size: int):
+    """(rank `rank`'s rows of the global batch, [r B/D, (r+1) B/D), and
+    their share of the global loss denominator)."""
+    total = _loss_denominator(batch)
     rows = {len(v) for v in batch.values()}
     if len(rows) != 1:
         raise ValueError(f"batch entries differ in rows: {sorted(rows)}")
     (b,) = rows
     if b % size:
         raise ValueError(f"a global batch of {b} rows does not split over "
-                         f"a data axis of {size}")
+                         f"{size} ranks")
     n = b // size
-    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+    local = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+    return local, _loss_denominator(local) / total
 
 
 def _loss_denominator(batch: Dict[str, Any]) -> float:

@@ -3,8 +3,10 @@
 reference parity: python/ray/train/_checkpoint.py:55 — Checkpoint with
 from_directory/to_directory/as_directory over a storage URI. Storage here
 is a filesystem path (local or NFS); a nested dict of tensors rides
-torch.save inside the directory when the caller uses the save helpers
-(the JAX package writes its pytrees with orbax there).
+torch.save inside the directory when the caller uses the save helpers,
+and a sharded one (DTensor leaves) torch.distributed.checkpoint, each
+rank writing its own shards (the JAX package writes its pytrees with
+orbax there).
 """
 
 from __future__ import annotations
@@ -47,9 +49,15 @@ class Checkpoint:
 
     # -- convenience for nested dicts of tensors ----------------------
     def save_pytree(self, tree: Any, name: str = "state") -> None:
-        """Write a nested dict of tensors (host copies) into this
-        checkpoint dir as `<name>.pt`."""
+        """Write a nested dict of tensors into this checkpoint dir: host
+        copies as `<name>.pt`, or, where a leaf is a DTensor, the sharded
+        state through torch.distributed.checkpoint into `<name>/`, which
+        every rank of the mesh calls (a collective)."""
         import torch
+        if _sharded(tree):
+            import torch.distributed.checkpoint as dcp
+            dcp.save(tree, checkpoint_id=os.path.join(self.path, name))
+            return
         dest = os.path.join(self.path, f"{name}.pt")
         tmp = f"{dest}.{os.getpid()}.tmp"
         torch.save(_map_leaves(tree, lambda t: t.detach().cpu()), tmp)
@@ -59,8 +67,20 @@ class Checkpoint:
                     target: Optional[Any] = None) -> Any:
         """Read what save_pytree wrote (tensors on the CPU). With a
         `target` tree, its keys and every tensor's shape must match, and
-        each tensor lands on its target's device and dtype."""
+        each tensor lands on its target's device and dtype. A sharded
+        checkpoint loads onto a target (every rank calls it), each
+        DTensor as the target places it: onto another mesh or other
+        placements it reshards."""
         import torch
+        sharded = os.path.join(self.path, name)
+        if os.path.isdir(sharded):
+            import torch.distributed.checkpoint as dcp
+            if target is None:
+                raise ValueError(f"checkpoint {name} is sharded: pass the "
+                                 f"target tree to load it onto")
+            out = _map_leaves(target, torch.empty_like)
+            dcp.load(out, checkpoint_id=sharded)
+            return out
         tree = torch.load(os.path.join(self.path, f"{name}.pt"),
                           map_location="cpu", weights_only=True)
         if target is None:
@@ -82,6 +102,13 @@ class Checkpoint:
 
     def __repr__(self) -> str:
         return f"Checkpoint(path={self.path!r})"
+
+
+def _sharded(tree: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return any(_sharded(v) for v in tree.values())
+    return isinstance(tree, DTensor)
 
 
 def _map_leaves(tree: Any, fn) -> Any:

@@ -44,12 +44,14 @@ def test_fresh_import_pulls_in_no_jax_and_no_ray_tpu():
         "print('IMPORTED', len([n for n in sys.modules "
         "if n.startswith('ray_tpu_torch')]))\n"
         "print('RLLIB', 'ray_tpu_torch.rllib' in sys.modules)\n"
+        "print('SHARDING', 'ray_tpu_torch.parallel.sharding' in sys.modules)\n"
         "print('BAD', bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert "RLLIB True" in out.stdout, out.stdout
+    assert "SHARDING True" in out.stdout, out.stdout
     # every source file was imported (the runtime's _private/ included)
     imported = int(out.stdout.split("IMPORTED ")[1].split()[0])
     assert imported >= len(SOURCES), (imported, len(SOURCES))
@@ -171,12 +173,32 @@ def test_rllib_unported_paths_raise_naming_roadmap():
 
 
 def test_unported_paths_raise_naming_their_slice():
-    for over in (dict(moe_experts=4), dict(remat=True),
+    for over in (dict(moe_experts=4),
                  dict(attention_impl="ring"), dict(attention_impl="ulysses")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Transformer(TINY.replace(**over), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transformer(TINY, device="cpu").pipeline_loss()
+
+
+@pytest.mark.parametrize("axis", ["seq", "pipe", "expert"])
+def test_unported_mesh_axes_raise_naming_queue_1_item_4(axis):
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        make_mesh(MeshConfig(data=1, **{axis: 2}), device="cpu")
+
+
+def test_sharded_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(MeshConfig(data=1, fsdp=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(lambda p, b: 0.0, Transformer.param_specs(TINY))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({}, TINY)
 
 
 @pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])

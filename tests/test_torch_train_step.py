@@ -92,11 +92,12 @@ def test_default_optimizer_is_adamw_3e4_decay_001():
 
 
 def test_mesh_is_not_ported_yet():
-    """Only the data axis is ported: an fsdp or tensor mesh raises, and a
-    data mesh (world 1, gloo, in this process) is accepted and steps
-    exactly as the single-device step does (no collective at D = 1)."""
-    for over in (dict(fsdp=2), dict(tensor=2)):
-        with pytest.raises(NotImplementedError, match="sharded train step"):
+    """The seq, pipe and expert axes are not ported yet: such a mesh
+    raises, and a data mesh (world 1, gloo, in this process) is accepted
+    and steps exactly as the single-device step does (no collective at
+    D = 1)."""
+    for over in (dict(seq=2), dict(pipe=2), dict(expert=2)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             p_make_mesh(PMeshConfig(data=1, **over), device="cpu")
     from ray_tpu_torch._private.rpc import find_free_port
     dist.init_process_group("gloo", world_size=1, rank=0,
