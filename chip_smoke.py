@@ -118,6 +118,42 @@ Phases, each of which raises (and so exits non-zero) on failure:
      "full" runs each layer's forward again in the backward) and 8 of each
      backward kernel. On one card the mesh is fsdp=1 and the step runs no
      collective; the phase says so.
+ 10. parallel: sequence, expert and pipeline parallelism at Llama-2-7B
+     width. (1) Ring hops: causal q, k, v [1, 16384, 32, 128] bf16 from
+     SEED cut into RING_SHARDS = 4 shards of 4,096; parallel/ring.py's
+     own _block_attention, _merge and per-hop backward over the four
+     shards in this process (the exchange replaced by indexing: NCCL
+     puts no two ranks on one card), held to one whole-sequence call of
+     each kernel (o, lse, then dq, dk, dv of one dO) with phase
+     "kernels"' bars (dq's rows floored by their rounding bound, over
+     chunks of rows), again with 8 kv heads (K and V at their kv width,
+     dK and dV summed over each group), and at [1, 4096, 8, 128] in four
+     shards of 1,024 against the plain f32 versions; 10 launches of each
+     kernel a pass (4 diagonal blocks, 6 full ones); the pass's ms
+     beside the whole-sequence kernels'. (2) A narrow MoE model (2
+     layers, d_model 1024, 8 heads, d_ff 2752, 8 experts, top-2, T 2048)
+     on the card against the port's CPU f32 path, as phase "reference".
+     (3) ray_tpu_torch.init() and TorchTrainer(...).fit() with one
+     worker a card, whose loop trains, each from a fresh model from SEED
+     through make_train_step with Transformer.param_specs and AdamW(1e-4,
+     weight decay 0.1), 2 warm-up and 3 timed steps: LLAMA2_7B cut to 8
+     layers (remat "full", head chunked by 256) on MeshConfig(data=1,
+     seq=-1) with attention_impl "ring", then "ulysses", on one row of
+     4096 x cards + 1 tokens (on one card the first loss equals phase
+     "llama"'s within 2e-2; always ln(32000) + 1/2 +/- 0.5; launches a
+     step on rank r: ring 16 (r + 1) forward, 8 (r + 1) of each
+     backward; Ulysses 16/8/8); LLAMA2_7B with 2 layers of 8 experts
+     (top-2, capacity factor 1.25) on MeshConfig(data=1, expert=-1), one
+     4,097-token row (first loss ln(32000) + 1/2 + 0.01 aux +/- 0.5; the
+     share of dropped (token, slot) pairs printed; over more than one
+     card the experts Shard-ed over expert; 4/2/2 launches a step); the
+     8-layer model's pipeline_loss(n_stages=cards, n_micro=4) on
+     MeshConfig(data=1, pipe=-1) over 4 rows of 4,097 tokens (its first
+     loss equal to Transformer.loss of the same params and batch within
+     2e-2; launches a step on a stage 2 (8 / cards)(4 + cards - 1)
+     forward and half that of each backward kernel). Each part's losses
+     must fall; its step ms, tokens/s, peak memory and launches are
+     printed beside the card's name and power limit.
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -430,20 +466,24 @@ def build_report(build, log, src, out=None):
     return used, spilled, build.sass(src, out)
 
 
-def reference_check(torch, Transformer, cfg, tokens_shape, gen):
+def reference_check(torch, Transformer, cfg, tokens_shape, gen,
+                    card=contextlib.nullcontext, cpu=contextlib.nullcontext):
     """cfg's loss and grads on the card (bf16, the kernels) against the
     port's CPU path (f32, plain versions) from the same params and
-    tokens: 2e-2 on the loss, 5e-2 on each grad's relative norm error."""
+    tokens: 2e-2 on the loss, 5e-2 on each grad's relative norm error.
+    `card` and `cpu`: contexts each side's loss and backward run in."""
     m_gpu = Transformer(cfg, seed=SEED)
     m_cpu = Transformer(cfg.replace(dtype="float32"), device="cpu")
     m_cpu.load_state_dict({n: p.cpu() for n, p in
                            m_gpu.state_dict().items()})
     tok = torch.randint(0, cfg.vocab_size, tokens_shape, generator=gen,
                         device="cuda")
-    l_gpu = m_gpu.loss({"tokens": tok})
-    l_gpu.backward()
-    l_cpu = m_cpu.loss({"tokens": tok.cpu()})
-    l_cpu.backward()
+    with card():
+        l_gpu = m_gpu.loss({"tokens": tok})
+        l_gpu.backward()
+    with cpu():
+        l_cpu = m_cpu.loss({"tokens": tok.cpu()})
+        l_cpu.backward()
     loss_err = abs(l_gpu.item() - l_cpu.item()) / abs(l_cpu.item())
     if not (math.isfinite(l_gpu.item()) and loss_err < 2e-2):
         raise AssertionError(f"loss {l_gpu.item()} vs {l_cpu.item()}")
@@ -645,7 +685,7 @@ def main(argv=None) -> int:
                 "trainer": trainer_launches[name]}
 
     with phase("llama"):
-        llama_launches = run_llama(
+        llama_launches, llama_first = run_llama(
             kind, smi, args.profile and os.path.abspath(args.profile)
             + ".llama")
         for name in records:
@@ -666,6 +706,13 @@ def main(argv=None) -> int:
                                  f"{dict(fa.launches)}")
         for name in records:
             records[name]["launches_by_path"]["impala"] = fa.launches[name]
+
+    with phase("parallel"):
+        by_path = run_parallel(torch, fa, Transformer, kind, smi, gen,
+                               llama_first)
+        for name in records:
+            records[name]["launches_by_path"].update(
+                {path: n[name] for path, n in by_path.items()})
 
     # after the runs, so that a spill does not hide what the kernels do
     spilled = {src: n for src, n in spills.items()
@@ -996,7 +1043,7 @@ def run_llama(kind, smi, profile):
     if launches != want:
         raise AssertionError(f"expected launches {want} over {steps} steps, "
                              f"got {launches}")
-    return launches
+    return launches, losses[0]
 
 
 # phase "rllib": PPO at the settings of RLlib's tuned example
@@ -1704,6 +1751,431 @@ def run_impala_cartpole():
         raise AssertionError(f"IMPALA CartPole reached {BAR} in "
                              f"{len(reached)} of "
                              f"{len(IMPALA_CARTPOLE_SEEDS)} seeds")
+
+
+# phase "parallel": sequence, expert and pipeline parallelism at
+# Llama-2-7B width (the module docstring's phase 10)
+RING_SHARDS = 4
+PARALLEL_WARMUP, PARALLEL_TIMED = 2, 3
+PIPE_MICRO = 4
+
+
+def dq_floor_chunked(torch, q, k, v, do, o, lse, scale, rows=512):
+    """dq_row_floor, causal, over chunks of `rows` query rows, so that no
+    [T, T] f32 block is held whole (T 16,384: 34 GB at 32 heads)."""
+    d, t = q.shape[-1], q.shape[1]
+    gamma = d * U_F32 / (1 - d * U_F32)
+    kabs, vabs = k.abs(), v.abs()
+    keys = torch.arange(t, device=q.device)
+    out = []
+    for i0 in range(0, t, rows):
+        i1 = min(t, i0 + rows)
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, i0:i1], k) * scale
+        keep = torch.arange(i0, i1, device=q.device)[:, None] >= keys
+        p = torch.exp(s - lse[:, :, i0:i1, None]).masked_fill(~keep, 0.0)
+        del s
+        dp_abs = torch.einsum("bqhd,bkhd->bhqk", do[:, i0:i1].abs(), vabs)
+        di_abs = (o[:, i0:i1].abs() * do[:, i0:i1].abs()).sum(-1).transpose(
+            1, 2)
+        bound = torch.einsum("bhqk,bkhd->bqhd",
+                             p * (dp_abs + di_abs[..., None]), kabs)
+        out.append(bound.amax(-1, keepdim=True))
+        del p, dp_abs
+    return torch.cat(out, 1) * (2 * scale * gamma / ATOL_ROW)
+
+
+# the share of top-k choices the CPU's f32 router may make otherwise than
+# the card's bf16 one: near-tied experts only (~1% expected)
+MAX_ROUTE_FLIPS = 0.05
+
+
+def same_routing(torch):
+    """(record, replay, flips): contexts under which ops/moe.py's router
+    records the experts it picks on the card, then, on the CPU, takes
+    those same experts (each slot's gate recomputed from its own f32
+    probs), while `flips` gathers whether the CPU's own pick differed,
+    one entry per (token, slot). Routing is a discontinuous choice: a
+    near-tied token picks another expert in bf16 than in f32, and each
+    embedding row's grad is a few tokens', so the reference holds the
+    same routing and counts the choices apart."""
+    from ray_tpu_torch.ops import moe
+    route, picked, flips = moe._route, [], []
+
+    def recording(x2, w, k):
+        out = route(x2, w, k)
+        picked.append(out[2].cpu())
+        return out
+
+    def replaying(x2, w, k):
+        probs, _, own = route(x2, w, k)
+        idx = picked.pop(0).to(own.device)
+        flips.extend((own != idx).flatten().tolist())
+        gates = probs.gather(1, idx)
+        return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), \
+            idx
+
+    @contextlib.contextmanager
+    def patched(fn):
+        moe._route = fn
+        try:
+            yield
+        finally:
+            moe._route = route
+
+    return (lambda: patched(recording)), (lambda: patched(replaying)), flips
+
+
+def ring_forward(ring, qs, ks, vs, scale):
+    """The causal ring's forward over len(qs) shards in one process:
+    ring.py's own _block_attention, _merge and _finish, the exchange
+    replaced by indexing (rank r holds block (r - hop) mod n at hop
+    `hop`). Returns each rank's (o, lse)."""
+    n = len(qs)
+    out = []
+    for r in range(n):
+        o = lse = None
+        for hop in range(n):
+            src = (r - hop) % n
+            if ring._live(src, r, True):
+                o_b, lse_b = ring._block_attention(qs[r], ks[src], vs[src],
+                                                   scale, src == r)
+                o, lse = ring._merge(o, lse, o_b, lse_b)
+        out.append((ring._finish(o, lse, qs[r].dtype), lse))
+    return out
+
+
+def ring_backward(torch, fa, ring, qs, ks, vs, dos, outs, scale):
+    """The ring's backward in one process from each rank's (o, lse):
+    di = rowsum(o dO), then ring.py's _block_grads at every live hop, dQ
+    summed on its rank, dK and dV on their block's. Returns (dq, dk, dv),
+    the shards concatenated along T."""
+    n = len(qs)
+    dqs = []
+    dks = [torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+           for k in ks]
+    dvs = [torch.zeros_like(dk) for dk in dks]
+    for r in range(n):
+        o, lse = outs[r]
+        di = fa.row_dot(o, dos[r])
+        dq = torch.zeros(qs[r].shape, dtype=torch.float32,
+                         device=qs[r].device)
+        for hop in range(n):
+            src = (r - hop) % n
+            if ring._live(src, r, True):
+                dq_b, dk_b, dv_b = ring._block_grads(
+                    qs[r], ks[src], vs[src], dos[r], lse, di, scale,
+                    src == r)
+                dq += dq_b
+                dks[src] += dk_b
+                dvs[src] += dv_b
+        dqs.append(dq.to(qs[r].dtype))
+    return (torch.cat(dqs, 1), torch.cat([x.to(ks[0].dtype) for x in dks], 1),
+            torch.cat([x.to(vs[0].dtype) for x in dvs], 1))
+
+
+def ring_hops(torch, fa, gen, t, h, hkv, against):
+    """Part 1 of phase "parallel": the causal ring over RING_SHARDS
+    shards of [1, t, h, 128] bf16 (k, v at hkv heads) in one process,
+    held to one whole-sequence call of each kernel (`against` "kernel")
+    or to their plain f32 versions ("plain") with phase "kernels"' bars;
+    returns its launches and the ring's and whole-sequence ms."""
+    from ray_tpu_torch.ops.attention import _repeat_kv
+    from ray_tpu_torch.parallel import ring
+    d, n = 128, RING_SHARDS
+    scale = d ** -0.5
+    q = torch.randn(1, t, h, d, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    k, v = (torch.randn(1, t, hkv, d, device="cuda", generator=gen).to(
+        torch.bfloat16) for _ in range(2))
+    do = torch.randn(1, t, h, d, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    shard = lambda x: [c.contiguous() for c in x.chunk(n, 1)]  # noqa: E731
+    qs, ks, vs, dos = shard(q), shard(k), shard(v), shard(do)
+    fa.reset_launches()
+    outs = ring_forward(ring, qs, ks, vs, scale)
+    dq, dk, dv = ring_backward(torch, fa, ring, qs, ks, vs, dos, outs, scale)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    o = torch.cat([x for x, _ in outs], 1)
+    lse = torch.cat([x for _, x in outs], 2)
+    kr, vr = _repeat_kv(k, h).contiguous(), _repeat_kv(v, h).contiguous()
+
+    def whole(fwd, dkv, dq_fn, qq, kk, vv, dd):
+        o_w, lse_w = fwd(qq, kk, vv, scale, True)
+        di_w = fa.row_dot(o_w, dd)
+        dk_w, dv_w = dkv(qq, kk, vv, dd, lse_w, di_w, scale, True)
+        return o_w, lse_w, dq_fn(qq, kk, vv, dd, lse_w, di_w, scale, True), \
+            dk_w, dv_w
+
+    if against == "kernel":
+        ref = whole(fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda,
+                    fa._flash_bwd_dq_cuda, q, kr, vr, do)
+    else:
+        ref = whole(fa.flash_fwd_ref, fa.flash_bwd_dkv_ref,
+                    fa.flash_bwd_dq_ref, q.float(), kr.float(), vr.float(),
+                    do.float())
+    o_w, lse_w, dq_w, dk_w, dv_w = ref
+    if against == "plain":
+        # as phase "kernels" gives the backward kernels the plain lse and
+        # di: the ring's backward from the plain o and lse, so that o's
+        # bf16 rounding (through di) is not counted against it
+        dq, dk, dv = ring_backward(
+            torch, fa, ring, qs, ks, vs, dos,
+            [(o_s, lse_s.contiguous()) for o_s, lse_s in
+             zip(o_w.chunk(n, 1), lse_w.chunk(n, 2))], scale)
+    if hkv != h:   # each group's dk/dv summed to the kv heads
+        dk_w = dk_w.float().view(1, t, hkv, h // hkv, d).sum(3)
+        dv_w = dv_w.float().view(1, t, hkv, h // hkv, d).sum(3)
+    floor = dq_floor_chunked(torch, q.float(), kr.float(), vr.float(),
+                             do.float(), o_w.float(), lse_w, scale)
+    worst = {"o": excess(o, o_w), "dq": excess(dq, dq_w, floor),
+             "dk": excess(dk, dk_w), "dv": excess(dv, dv_w)}
+    lse_err = (lse - lse_w).abs().max().item()
+    del ref, floor
+    ms = {"ring": cuda_ms(torch, lambda: ring_backward(
+        torch, fa, ring, qs, ks, vs, dos,
+        ring_forward(ring, qs, ks, vs, scale), scale), 5)}
+    if against == "kernel":
+        ms["whole"] = cuda_ms(torch, lambda: whole(
+            fa._flash_fwd_cuda, fa._flash_bwd_dkv_cuda, fa._flash_bwd_dq_cuda,
+            q, kr, vr, do), 5)
+    print(f"  ring hops [1, {t}, {h}/{hkv}, {d}] in {n} shards against the "
+          f"{'whole-sequence kernels' if against == 'kernel' else 'plain f32 versions (the backward from their o, lse)'}: "
+          f"excess {', '.join(f'{x} {e:.3f}' for x, e in worst.items())}; "
+          f"lse max|err| {lse_err:.3e}; launches {launches}; forward + "
+          f"backward {ms['ring']:.4f} ms"
+          + (f" against {ms['whole']:.4f} ms whole "
+             f"({ms['ring'] / ms['whole']:.2f}x)" if "whole" in ms else ""),
+          flush=True)
+    for x, e in worst.items():
+        if not e <= 1.0:
+            raise AssertionError(f"ring hops: {x} excess {e:.3f} at "
+                                 f"{(t, h, hkv)}")
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"ring hops: lse error {lse_err:.3e}")
+    live = n * (n + 1) // 2     # n diagonal blocks and n(n-1)/2 full ones
+    if launches != {name: live for name in launches}:
+        raise AssertionError(f"ring hops: expected {live} launches of each "
+                             f"kernel, got {launches}")
+    return launches
+
+
+def parallel_loop():
+    """The train loop of phase "parallel", in each card's worker: the
+    ring and Ulysses steps over seq, the MoE step over expert and the
+    pipelined step over pipe, each a fresh model from SEED through
+    make_train_step; every rank reports, its launches gathered."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import LLAMA2_7B, Transformer
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets it
+    torch.backends.cudnn.allow_tf32 = False
+    world = dist.get_world_size()
+    vocab = LLAMA2_7B.vocab_size
+    parts = {}
+
+    def run(name, cfg, mesh_config, rows, t, loss=None, before=None):
+        """`loss(model, mesh, batch)` (default: Transformer.loss) trained
+        from a fresh model; `before(model, mesh, batch)` -> extra entries,
+        run under no_grad on the placed params before the first step."""
+        model = Transformer(cfg, seed=SEED)
+        mesh = make_mesh(mesh_config)
+        loss = loss or (lambda m, msh, b: m.loss(b, mesh=msh))
+        init_state, train_step = make_train_step(
+            lambda p, b: loss(model, mesh, b), Transformer.param_specs(cfg),
+            mesh, optimizer=adamw(1e-4, weight_decay=0.1))
+        state = init_state(model)
+        batch = {"tokens": np.random.default_rng(SEED).integers(
+            0, vocab, (rows, t + 1))}
+        out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+        if before is not None:
+            with torch.no_grad():
+                out.update(before(model, mesh, batch))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        losses = []
+        for _ in range(PARALLEL_WARMUP):
+            state, metrics = train_step(state, batch)
+            losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = []
+        for _ in range(PARALLEL_TIMED):
+            state, metrics = train_step(state, batch)
+            timed.append(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = [None] * world
+        dist.all_gather_object(launches, dict(fa.launches))
+        out.update({
+            "losses": losses + [x.item() for x in timed],
+            "step_ms": dt / PARALLEL_TIMED * 1e3,
+            "tokens_s": rows * t * PARALLEL_TIMED / dt,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches,
+            "placements": {n: [str(pl) for pl in p.placements]
+                           for n, p in state["params"].items()}})
+        if cfg.moe_experts:
+            out["dropped"] = model.moe_dropped.tolist()
+            up = state["params"]["layers.w_moe_up"]
+            names = list(mesh.mesh_dim_names)
+            out["experts_sharded"] = (
+                "expert" in names
+                and up.placements[names.index("expert")] == Shard(1))
+        parts[name] = out
+        del model, state, train_step, init_state, metrics, timed, loss
+        torch.cuda.empty_cache()
+
+    llama8 = LLAMA2_7B.replace(n_layers=LLAMA_LAYERS)
+    for impl in ("ring", "ulysses"):
+        run(impl, llama8.replace(attention_impl=impl),
+            MeshConfig(data=1, seq=-1), 1, LLAMA2_7B.max_seq_len * world)
+
+    def aux(model, mesh, batch):
+        tokens = torch.as_tensor(batch["tokens"],
+                                 device=model.embed.device)[:, :-1]
+        return {"aux": model.hidden(tokens, mesh=mesh,
+                                    with_aux=True)[1].item()}
+
+    run("moe", LLAMA2_7B.replace(n_layers=2, moe_experts=8, moe_top_k=2,
+                                 attention_impl="auto"),
+        MeshConfig(data=1, expert=-1), 1, LLAMA2_7B.max_seq_len,
+        before=aux)
+
+    def reference(model, mesh, batch):
+        b = {"tokens": torch.as_tensor(batch["tokens"],
+                                       device=model.embed.device)}
+        return {"reference_loss": model.loss(b, mesh=mesh).item()}
+
+    run("pipeline", llama8.replace(attention_impl="auto"),
+        MeshConfig(data=1, pipe=-1), PIPE_MICRO, LLAMA2_7B.max_seq_len,
+        loss=lambda m, msh, b: m.pipeline_loss(
+            b, mesh=msh, n_stages=world, n_micro=PIPE_MICRO),
+        before=reference)
+    train.report({"world": world, "parts": parts})
+
+
+def run_parallel(torch, fa, Transformer, kind, smi, gen, llama_first):
+    """Phase "parallel" (the module docstring's phase 10); returns the
+    launches of each of its paths (rank 0's for the steps)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models import LLAMA2_7B
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    by_path = {"ring_hops": {}}
+    t = LLAMA2_7B.max_seq_len * RING_SHARDS
+    for h, hkv, tt, against in ((32, 32, t, "kernel"), (32, 8, t, "kernel"),
+                                (8, 8, LLAMA2_7B.max_seq_len, "plain")):
+        got = ring_hops(torch, fa, gen, tt, h, hkv, against)
+        if (h, hkv) == (32, 32):
+            by_path["ring_hops"] = got
+        torch.cuda.empty_cache()
+    # a narrow MoE model on the card against the port's CPU f32 path
+    narrow = LLAMA2_7B.replace(n_layers=2, d_model=1024, n_heads=8,
+                               n_kv_heads=None, d_ff=2752, max_seq_len=2048,
+                               moe_experts=8, moe_top_k=2,
+                               attention_impl="auto")
+    record, replay, flips = same_routing(torch)
+    reference_check(torch, Transformer, narrow, (1, 2049), gen, record,
+                    replay)
+    share = sum(flips) / len(flips)
+    print(f"  MoE routing: the CPU's own top-2 differs from the card's in "
+          f"{share:.4%} of (token, slot) choices (the reference replays "
+          f"the card's)", flush=True)
+    if not share < MAX_ROUTE_FLIPS:
+        raise AssertionError(f"MoE routing differs in {share:.2%} of "
+                             f"choices")
+    torch.cuda.empty_cache()
+
+    cards = torch.cuda.device_count()
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        ray_tpu_torch.init(num_cpus=cards + 1, _session_root=root)
+        t0 = time.perf_counter()
+        result = TorchTrainer(
+            parallel_loop,
+            scaling_config=ScalingConfig(num_workers=cards),
+            run_config=RunConfig(storage_path=os.path.join(root, "results"),
+                                 name="parallel")).fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    if result.error is not None:
+        raise AssertionError(f"parallel run failed: {result.error!r}")
+    world, parts = result.metrics["world"], result.metrics["parts"]
+    steps = PARALLEL_WARMUP + PARALLEL_TIMED
+    base = math.log(LLAMA2_7B.vocab_size) + 0.5
+    print(f"  {world} worker(s); fit() {fit_s:.1f} s", flush=True)
+    for name, m in parts.items():
+        losses = m["losses"]
+        print(f"  {name}: mesh {m['mesh']}; losses "
+              f"{['%.4f' % x for x in losses]}; step {m['step_ms']:.2f} ms, "
+              f"{m['tokens_s']:.1f} tokens/s, peak memory "
+              f"{m['peak_gib']:.2f} GiB, launches (rank 0) "
+              f"{m['launches'][0]}; {kind}; {smi}", flush=True)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: non-finite loss: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: loss does not fall: {losses}")
+    for impl in ("ring", "ulysses"):
+        first = parts[impl]["losses"][0]
+        if abs(first - base) > 0.5:
+            raise AssertionError(f"{impl}: first loss {first} is not near "
+                                 f"ln(32000) + 1/2")
+        if world == 1 and abs(first - llama_first) > 2e-2:
+            raise AssertionError(f"{impl}: first loss {first} is not phase "
+                                 f"llama's {llama_first}")
+        for r, got in enumerate(parts[impl]["launches"]):
+            # remat "full": each live block's forward twice a step
+            live = r + 1 if impl == "ring" else 1
+            want = {"flash_fwd": 2 * LLAMA_LAYERS * live * steps,
+                    "flash_bwd_dkv": LLAMA_LAYERS * live * steps,
+                    "flash_bwd_dq": LLAMA_LAYERS * live * steps}
+            if got != want:
+                raise AssertionError(f"{impl} rank {r}: expected launches "
+                                     f"{want}, got {got}")
+    moe = parts["moe"]
+    want_first = base + 0.01 * moe["aux"]
+    print(f"  moe: aux {moe['aux']:.4f}; dropped (token, slot) pairs a "
+          f"layer {['%.4f' % x for x in moe['dropped']]}; experts "
+          f"{'split over expert' if moe['experts_sharded'] else 'whole on each card (expert = 1)'}",
+          flush=True)
+    if abs(moe["losses"][0] - want_first) > 0.5:
+        raise AssertionError(f"moe: first loss {moe['losses'][0]} is not "
+                             f"near {want_first}")
+    if world > 1 and not moe["experts_sharded"]:
+        raise AssertionError(f"moe: w_moe_up placed {moe['placements']}")
+    for r, got in enumerate(moe["launches"]):
+        want = {"flash_fwd": 4 * steps, "flash_bwd_dkv": 2 * steps,
+                "flash_bwd_dq": 2 * steps}
+        if got != want:
+            raise AssertionError(f"moe rank {r}: expected {want}, got {got}")
+    pipe = parts["pipeline"]
+    print(f"  pipeline: first loss {pipe['losses'][0]:.5f}, Transformer.loss "
+          f"of the same params and batch {pipe['reference_loss']:.5f}",
+          flush=True)
+    if abs(pipe["losses"][0] - pipe["reference_loss"]) > 2e-2:
+        raise AssertionError("pipeline: first loss is not Transformer.loss's")
+    ticks = PIPE_MICRO + world - 1
+    for r, got in enumerate(pipe["launches"]):
+        per = 2 * (LLAMA_LAYERS // world) * ticks * steps
+        want = {"flash_fwd": per, "flash_bwd_dkv": per // 2,
+                "flash_bwd_dq": per // 2}
+        if got != want:
+            raise AssertionError(f"pipeline stage {r}: expected {want}, "
+                                 f"got {got}")
+    by_path.update({name: parts[name]["launches"][0] for name in parts})
+    return by_path
 
 
 def profile_step(torch, train_step, state, batch, path):

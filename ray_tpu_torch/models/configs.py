@@ -27,8 +27,10 @@ class TransformerConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     # "auto" | "dense" | "flash" | "ring" | "ulysses". auto = flash when
-    # the seq axis is unsharded (always, in the port so far); dense =
-    # materialized-scores attention; ring/ulysses are not ported yet.
+    # the seq axis is unsharded, ring when it is; dense = materialized-
+    # scores attention; ring/ulysses = sequence parallelism over the seq
+    # axis (parallel/ring.py, parallel/ulysses.py: the flash kernels on
+    # each block, one block at seq 1).
     attention_impl: str = "dense"
     # params kept in param_dtype, compute runs in dtype (bf16 on the card;
     # the products accumulate in f32)

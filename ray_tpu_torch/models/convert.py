@@ -32,7 +32,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
                     rules: Optional[ShardingRules] = None
                     ) -> Dict[str, torch.Tensor]:
     """JAX Transformer.init tree -> the port Transformer's state_dict, in
-    cfg.param_dtype on `device` (CUDA when None). With a mesh (a
+    cfg.param_dtype (a MoE router in f32, as both inits make it) on
+    `device` (CUDA when None). With a mesh (a
     DeviceMesh from make_mesh over `device`'s type) each value is a
     DTensor holding this rank's slice only, placed as `rules` (the
     default rules when None) resolve Transformer.param_specs(cfg)."""
@@ -45,16 +46,20 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
             flat.update({f"layers.{n}": a for n, a in value.items()})
         else:
             flat[name] = value
+
+    def dtype(name):
+        return torch.float32 if name == "layers.w_router" else pdt
+
     if mesh is None:
-        return {n: _to_torch(a, pdt, dev) for n, a in flat.items()}
+        return {n: _to_torch(a, dtype(n), dev) for n, a in flat.items()}
     specs = flatten_specs(Transformer.param_specs(cfg))
     out: Dict[str, torch.Tensor] = {}
     for name, a in flat.items():
         a = np.asarray(a)
         placements = logical_sharding(specs[name], mesh, rules,
                                       shape=a.shape)
-        local = _to_torch(a[local_slices(a.shape, placements, mesh)], pdt,
-                          dev)
+        local = _to_torch(a[local_slices(a.shape, placements, mesh)],
+                          dtype(name), dev)
         out[name] = DTensor.from_local(local, mesh, placements,
                                        run_check=False)
     return out

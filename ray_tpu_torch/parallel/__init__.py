@@ -1,12 +1,13 @@
 """ray_tpu_torch.parallel: the port's counterpart of ray_tpu.parallel.
 
-Ported so far: the mesh (a torch.distributed DeviceMesh with the JAX
-package's axis names; the data, fsdp and tensor axes), the logical
-sharding rules (DTensor placements), and the training step: single
-device, data parallel, or sharded by the rules (FSDP over fsdp, tensor
-parallelism over tensor). Ring and Ulysses attention, the pipeline and
-the multi-slice helpers come with later slices (ROADMAP.md, Queue 1
-item 4).
+The mesh (a torch.distributed DeviceMesh with the JAX package's axis
+names: data, fsdp, pipe, expert, seq and tensor, the size-1 ones among
+pipe, expert and seq left out; multi-slice meshes with "dcn"
+outermost), the logical sharding rules (DTensor placements) and the
+collectives they imply, the training step (single device, data
+parallel, or sharded by the rules), ring and Ulysses attention over
+`seq`, and the microbatched pipeline over `pipe`. MoE over `expert` is
+ops/moe.py.
 """
 
 from ray_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -26,6 +27,15 @@ from ray_tpu_torch.parallel.sharding import (  # noqa: F401
     shard_pytree,
     with_logical_constraint,
 )
+from ray_tpu_torch.parallel.multislice import (  # noqa: F401
+    AXIS_DCN,
+    MultiSliceConfig,
+    dcn_batch_spec,
+    make_multislice_mesh,
+    validate_multislice_sharding,
+)
+from ray_tpu_torch.parallel.ring import ring_attention  # noqa: F401
+from ray_tpu_torch.parallel.ulysses import ulysses_attention  # noqa: F401
 
 __all__ = [
     "MeshConfig",
@@ -41,4 +51,11 @@ __all__ = [
     "logical_sharding",
     "shard_pytree",
     "with_logical_constraint",
+    "ring_attention",
+    "ulysses_attention",
+    "AXIS_DCN",
+    "MultiSliceConfig",
+    "make_multislice_mesh",
+    "dcn_batch_spec",
+    "validate_multislice_sharding",
 ]

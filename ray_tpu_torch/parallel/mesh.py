@@ -3,14 +3,14 @@ ray_tpu/parallel/mesh.py).
 
 The JAX package's mesh is a `jax.sharding.Mesh` over six named axes;
 the port's is a `torch.distributed` DeviceMesh over the ranks of the
-default process group (TorchTrainer starts one) with the axes it runs:
-`data`, `fsdp` and `tensor`, in the JAX order (PORTED_AXES). The `seq`,
-`pipe` and `expert` axes must have size 1 until ring and Ulysses
-attention, the pipeline and MoE are ported (ROADMAP.md, Queue 1 item
-4), and leaving those size-1 axes out places every rank where the JAX
-mesh does. It also keeps DTensor's sharding propagation cheap: it
-enumerates strategies over every mesh dim, and one pointwise op on a
-six-dim mesh took over 25 s on the CPU where three dims take 0.2 s.
+default process group (TorchTrainer starts one), in the JAX order
+(MESH_AXIS_ORDER): always `data`, `fsdp` and `tensor`, and each of
+`pipe`, `expert` and `seq` whose size is above 1 (mesh_axis_names).
+Leaving a size-1 axis out places every rank where the JAX mesh does, and
+the sharding rules read a missing axis as size 1. It also keeps DTensor's
+sharding propagation cheap: it enumerates strategies over every mesh
+dim, and one pointwise op on a six-dim mesh took over 25 s on the CPU
+where three dims take 0.2 s.
 """
 
 from __future__ import annotations
@@ -75,19 +75,15 @@ class MeshConfig:
         return sizes
 
 
-# the axes whose parallelism the port runs; the others must have size 1
-PORTED_AXES: Tuple[str, ...] = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR)
+# the axes every mesh of the port holds, whatever their size
+ALWAYS_AXES: Tuple[str, ...] = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR)
 
 
-def check_ported_axes(sizes: Mapping[str, int]) -> None:
-    """Raise unless every axis the port does not run yet has size 1."""
-    other = {a: s for a, s in sizes.items()
-             if a not in PORTED_AXES and s != 1}
-    if other:
-        raise NotImplementedError(
-            f"mesh axes {other}: sequence, pipeline and expert parallelism "
-            f"are not ported yet (ROADMAP.md, Queue 1 item 4); the data, "
-            f"fsdp and tensor axes are")
+def mesh_axis_names(sizes: Mapping[str, int]) -> Tuple[str, ...]:
+    """The dims of the port's mesh for resolved axis `sizes`: data, fsdp
+    and tensor, and each other axis above size 1, in the JAX order."""
+    return tuple(a for a in MESH_AXIS_ORDER
+                 if a in ALWAYS_AXES or sizes.get(a, 1) > 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,9 +103,9 @@ class AbstractMesh:
 def get_abstract_mesh(config: MeshConfig, n_devices: int) -> AbstractMesh:
     """The mesh `make_mesh(config)` would build over `n_devices` ranks,
     shape only."""
-    check_ported_axes(config.axis_sizes())
     sizes = config.resolve(n_devices)
-    return AbstractMesh(PORTED_AXES, tuple(sizes[a] for a in PORTED_AXES))
+    names = mesh_axis_names(sizes)
+    return AbstractMesh(names, tuple(sizes[a] for a in names))
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
@@ -123,16 +119,15 @@ def mesh_shape(mesh) -> Dict[str, int]:
 def make_mesh(config: Optional[MeshConfig] = None, *,
               device: DeviceLike = None):
     """A DeviceMesh over every rank of the default process group with the
-    axes PORTED_AXES, sized by `config`. Its device type is CUDA unless the
+    axes mesh_axis_names gives for `config`'s sizes, rank r at row-major
+    position r as in the JAX mesh. Its device type is CUDA unless the
     caller names another (``device="cpu"`` over a gloo group), and CUDA
-    raises without a card. The seq, pipe and expert axes raise above
-    size 1 (Queue 1 item 4)."""
+    raises without a card."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
     config = config or MeshConfig()
-    check_ported_axes(config.axis_sizes())
     dev = resolve_device(device)
     if not dist.is_initialized():
         raise RuntimeError(
@@ -140,6 +135,7 @@ def make_mesh(config: Optional[MeshConfig] = None, *,
             "TorchTrainer's workers have one")
     world = dist.get_world_size()
     sizes = config.resolve(world)
-    shape = tuple(sizes[a] for a in PORTED_AXES)
+    names = mesh_axis_names(sizes)
+    shape = tuple(sizes[a] for a in names)
     return DeviceMesh(dev.type, torch.arange(world).reshape(shape),
-                      mesh_dim_names=PORTED_AXES)
+                      mesh_dim_names=names)

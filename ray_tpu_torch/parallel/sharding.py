@@ -13,9 +13,14 @@ process group.
 
 The collectives the rules imply are explicit: `gather_at_use` casts a
 param shard to the compute dtype and all-gathers it when a layer runs,
-and reduce-scatters its grad back to the shard; `to_tensor_parallel` and
-`sum_over_tensor_parallel` are Megatron's f and g for column- and
-row-parallel projections over the `tensor` axis.
+and reduce-scatters its grad back to the shard; `to_parallel` and
+`sum_over` are Megatron's f and g over any axes (the column- and
+row-parallel projections over `tensor`, the experts over `expert`);
+`ppermute` and `all_to_all` are JAX's `lax.ppermute` and tiled
+`lax.all_to_all` over one axis (the pipeline's hand-off, Ulysses'
+resharding), each an autograd Function whose backward is the inverse
+exchange. Every rank of an axis must make the same exchanges in the
+same order, forward and backward, or the collectives hang.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ray_tpu_torch.parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_FSDP,
                                          AXIS_PIPE, AXIS_SEQ, AXIS_TENSOR,
-                                         MESH_AXIS_ORDER, mesh_shape)
+                                         mesh_shape)
 
 # A logical spec is a tuple of logical axis names (or None) per array dim.
 LogicalSpec = Tuple[Optional[str], ...]
@@ -151,9 +156,9 @@ def spec_placements(spec, mesh) -> Tuple:
     placements = [Replicate()] * len(names)
     for d, entry in enumerate(spec):
         axes = _axes(entry)
-        if list(axes) != sorted(axes, key=MESH_AXIS_ORDER.index):
+        if list(axes) != sorted(axes, key=names.index):
             raise ValueError(f"dim {d} is split over {axes}, out of the "
-                             f"mesh's order {MESH_AXIS_ORDER}")
+                             f"mesh's order {names}")
         for a in axes:
             m = names.index(a)
             if placements[m] != Replicate():
@@ -283,6 +288,14 @@ def mesh_axes(mesh) -> Tuple[MeshAxis, ...]:
                  for n, s, c in zip(mesh.mesh_dim_names, mesh.shape, coord))
 
 
+def mesh_axis(mesh, name: str) -> MeshAxis:
+    """Axis `name` of a DeviceMesh (or None) as this rank sees it; an
+    axis the mesh leaves out has size 1."""
+    if mesh is not None and name in (mesh.mesh_dim_names or ()):
+        return next(a for a in mesh_axes(mesh) if a.name == name)
+    return MeshAxis(name, 1, 0, None)
+
+
 class _GatherAtUse(torch.autograd.Function):
     """Forward: cast a shard to `dtype`, then all-gather it over each
     gathered axis, inner axes first. Backward: the grad back in the
@@ -344,40 +357,162 @@ def gather_at_use(shard: torch.Tensor, dtype: torch.dtype, placements,
     return _GatherAtUse.apply(shard, dtype, tuple(gathers), tuple(reduces))
 
 
-class _ToTensorParallel(torch.autograd.Function):
+def _groups(axes) -> Tuple[Any, ...]:
+    if isinstance(axes, MeshAxis):
+        axes = (axes,)
+    return tuple(a.group for a in axes if a.size > 1)
+
+
+def _all_reduce_each(x, groups):
+    for g in groups:
+        x = _all_reduce(x, g)
+    return x
+
+
+class _ToParallel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, groups):
+        ctx.groups = groups
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
+        return _all_reduce_each(g, ctx.groups), None
 
 
-class _SumOverTensorParallel(torch.autograd.Function):
+class _SumOver(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        return _all_reduce(x, group)
+    def forward(ctx, x, groups):
+        return _all_reduce_each(x, groups)
 
     @staticmethod
     def backward(ctx, g):
         return g, None
 
 
-def to_tensor_parallel(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
-    """Megatron's f: the input of column-parallel projections, the same
-    on every rank of the tensor axis; its grad (each rank's from its own
-    columns) is summed over the axis."""
-    if axis.size == 1:
-        return x
-    return _ToTensorParallel.apply(x, axis.group)
+class _SumAcross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _all_reduce_each(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_each(g, ctx.groups), None
 
 
-def sum_over_tensor_parallel(x: torch.Tensor,
-                             axis: MeshAxis) -> torch.Tensor:
-    """Megatron's g: the partial outputs of a row-parallel projection
-    summed over the tensor axis; the grad passes through."""
+def to_parallel(x: torch.Tensor, axes) -> torch.Tensor:
+    """Megatron's f over `axes` (a MeshAxis or several): the input of a
+    block split over them (column-parallel projections over `tensor`,
+    the experts over `expert`), the same on every rank; its grad (each
+    rank's from its own part) is summed over the axes."""
+    groups = _groups(axes)
+    return _ToParallel.apply(x, groups) if groups else x
+
+
+def sum_over(x: torch.Tensor, axes) -> torch.Tensor:
+    """Megatron's g over `axes`: the ranks' partial outputs summed (a
+    row-parallel projection, each rank's experts, the pipeline's stage
+    losses); the grad passes through unchanged, the sum being the same
+    on every rank."""
+    groups = _groups(axes)
+    return _SumOver.apply(x, groups) if groups else x
+
+
+def sum_across(x: torch.Tensor, axes) -> torch.Tensor:
+    """The sum over `axes` of partial values whose every rank's use is a
+    share of one objective (e.g. MoE router probs summed over the token
+    shards): all-reduce forward, all-reduce of the grads backward."""
+    groups = _groups(axes)
+    return _SumAcross.apply(x, groups) if groups else x
+
+
+def all_gather_dim(x: torch.Tensor, axis: MeshAxis, dim: int) -> torch.Tensor:
+    """x of every rank of `axis`, concatenated along `dim` in rank order
+    (no grad)."""
     if axis.size == 1:
         return x
-    return _SumOverTensorParallel.apply(x, axis.group)
+    return _all_gather(x, dim, axis.group)
+
+
+def _exchange(tensors, axis: MeshAxis, shift: int):
+    """Send each of `tensors` to the rank `shift` places on along `axis`
+    and return what the rank `shift` places back sent, in one
+    batch_isend_irecv (on a ring of 2 both peers are the same rank)."""
+    import torch.distributed as dist
+    group = axis.group
+    to = dist.get_global_rank(group, (axis.coord + shift) % axis.size)
+    frm = dist.get_global_rank(group, (axis.coord - shift) % axis.size)
+    ops, out = [], []
+    for t in tensors:
+        t = t.contiguous()
+        buf = torch.empty_like(t)
+        ops += [dist.P2POp(dist.isend, t, to, group),
+                dist.P2POp(dist.irecv, buf, frm, group)]
+        out.append(buf)
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+def exchange(tensors, axis: MeshAxis, shift: int = 1):
+    """`_exchange` with no autograd (the ring's K/V and dK/dV hops); the
+    identity at axis size 1."""
+    if axis.size == 1:
+        return list(tensors)
+    return _exchange(tensors, axis, shift)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, shift):
+        ctx.axis, ctx.shift = axis, shift
+        return _exchange([x], axis, shift)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange([g], ctx.axis, -ctx.shift)[0], None, None
+
+
+def ppermute(x: torch.Tensor, axis: MeshAxis, shift: int = 1) -> torch.Tensor:
+    """lax.ppermute over a ring: rank i's x goes to rank (i + shift) mod
+    n of `axis`; its backward sends the grad the opposite way. The
+    identity at axis size 1."""
+    if axis.size == 1:
+        return x
+    return _Ppermute.apply(x, axis, shift)
+
+
+def _a2a(x, axis: MeshAxis, split_dim: int, concat_dim: int):
+    import torch.distributed as dist
+    inp = torch.stack(x.chunk(axis.size, split_dim)).contiguous()
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=axis.group)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_dim, concat_dim):
+        ctx.args = axis, split_dim, concat_dim
+        return _a2a(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, split_dim, concat_dim = ctx.args
+        return _a2a(g, axis, concat_dim, split_dim), None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis: MeshAxis, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """lax.all_to_all(tiled=True) over `axis`: x splits into n equal
+    chunks along split_dim, chunk j goes to rank j, and the chunks each
+    rank receives are concatenated along concat_dim in rank order (one
+    all_to_all_single); its backward is the inverse all-to-all. The
+    identity at axis size 1."""
+    if axis.size == 1:
+        return x
+    if x.shape[split_dim] % axis.size:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                         f"split over {axis.size} ranks of {axis.name!r}")
+    return _AllToAll.apply(x, axis, split_dim, concat_dim)

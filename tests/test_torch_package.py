@@ -5,12 +5,14 @@ missing."""
 
 import ast
 import importlib.util
+import math
 import os
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -173,19 +175,52 @@ def test_rllib_unported_paths_raise_naming_roadmap():
 
 
 def test_unported_paths_raise_naming_their_slice():
-    for over in (dict(moe_experts=4),
-                 dict(attention_impl="ring"), dict(attention_impl="ulysses")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Transformer(TINY.replace(**over), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(TINY, device="cpu").pipeline_loss()
+    """Once raising paths, ported now (Queue 1 item 4): the Transformer
+    builds with MoE layers, ring and Ulysses attention, each of which
+    runs a CPU loss equal to the dense model's (ring and Ulysses on an
+    unsharded seq are one flash block); pipeline_loss on one stage equals
+    loss."""
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, TINY.vocab_size, (2, 17))
+    base = TINY.replace(dtype="float32", loss_chunk=0)
+    torch.manual_seed(0)
+    dense = Transformer(base, device="cpu")
+    want = dense.loss({"tokens": tokens}).item()
+    for over in (dict(attention_impl="ring"), dict(attention_impl="ulysses")):
+        model = Transformer(base.replace(**over), device="cpu")
+        model.load_state_dict(dense.state_dict())
+        assert abs(model.loss({"tokens": tokens}).item() - want) < 1e-5
+    moe = Transformer(base.replace(moe_experts=4), device="cpu")
+    assert moe.layers["w_router"].dtype == torch.float32
+    assert tuple(moe.layers["w_moe_up"].shape) == (2, 4, 64, 128)
+    assert math.isfinite(moe.loss({"tokens": tokens}).item())
+    got = dense.pipeline_loss({"tokens": tokens}, mesh=None, n_stages=1,
+                              n_micro=2).item()
+    assert abs(got - want) < 1e-5
 
 
 @pytest.mark.parametrize("axis", ["seq", "pipe", "expert"])
 def test_unported_mesh_axes_raise_naming_queue_1_item_4(axis):
+    """Once raising, ported now: a mesh with the axis above size 1 builds
+    (8 ranks of torch's fake process group, in this process) and holds
+    it among its dims in the JAX order; at size 1 the axis is left
+    out."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
     from ray_tpu_torch.parallel import MeshConfig, make_mesh
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        make_mesh(MeshConfig(data=1, **{axis: 2}), device="cpu")
+    dist.init_process_group("fake", store=FakeStore(), rank=5, world_size=8)
+    try:
+        mesh = make_mesh(MeshConfig(data=2, tensor=2, **{axis: 2}),
+                         device="cpu")
+        order = ("data", "fsdp", "pipe", "expert", "seq", "tensor")
+        assert mesh.mesh_dim_names == tuple(
+            a for a in order if a in ("data", "fsdp", "tensor", axis))
+        assert dict(zip(mesh.mesh_dim_names, mesh.shape))[axis] == 2
+        one = make_mesh(MeshConfig(data=-1, **{axis: 1}), device="cpu")
+        assert one.mesh_dim_names == ("data", "fsdp", "tensor")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_sharded_entry_points_default_to_cuda_and_raise_without_it(

@@ -32,7 +32,6 @@ from ray_tpu_torch.models import LLAMA2_7B, TINY, Transformer
 from ray_tpu_torch.parallel import (MeshConfig, ShardingRules,
                                     get_abstract_mesh, shard_pytree,
                                     with_logical_constraint)
-from ray_tpu_torch.parallel.mesh import PORTED_AXES
 from ray_tpu_torch.parallel.sharding import (DEFAULT_RULES, flatten_specs,
                                              logical_sharding, logical_spec)
 
@@ -73,11 +72,11 @@ def test_placements_follow_the_jax_specs(config, mesh_name):
         got = logical_spec(specs[name], mesh, shape=shape)
         assert got == want, name
         degraded += got != logical_spec(specs[name], mesh)
-        placements = [Replicate()] * len(PORTED_AXES)
+        placements = [Replicate()] * len(mesh.axis_names)
         for dim, entry in enumerate(want):
             for axis in (entry if isinstance(entry, tuple) else (entry,)):
                 if axis is not None:
-                    placements[PORTED_AXES.index(axis)] = Shard(dim)
+                    placements[mesh.axis_names.index(axis)] = Shard(dim)
         assert logical_sharding(specs[name], mesh, shape=shape) == \
             tuple(placements), name
     # TINY's 2 kv heads do not divide tensor=4: wkv's entry is replicated
@@ -109,9 +108,18 @@ def test_with_logical_constraint_is_a_no_op_on_plain_tensors():
 
 
 def test_unported_mesh_axes_raise_naming_queue_1_item_4():
-    for over in (dict(seq=2), dict(pipe=2), dict(expert=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            get_abstract_mesh(MeshConfig(data=1, **over), 2)
+    """Once raising, ported now: the seq, pipe and expert axes above size
+    1 are dims of the mesh, in the JAX order, and the rules place over
+    them as the JAX package's do (the layer stack over pipe)."""
+    for name in ("seq", "pipe", "expert"):
+        mesh = get_abstract_mesh(MeshConfig(data=1, **{name: 2}), 2)
+        assert mesh.axis_names == tuple(
+            a for a in ("data", "fsdp", "pipe", "expert", "seq", "tensor")
+            if a in ("data", "fsdp", "tensor", name))
+        assert mesh.shape[name] == 2
+    mesh = get_abstract_mesh(MeshConfig(data=1, pipe=2), 2)
+    assert logical_sharding(("layers", "norm"), mesh) == (
+        Replicate(), Replicate(), Shard(0), Replicate())
 
 
 def test_llama2_7b_on_the_meta_device():

@@ -92,13 +92,25 @@ def test_default_optimizer_is_adamw_3e4_decay_001():
 
 
 def test_mesh_is_not_ported_yet():
-    """The seq, pipe and expert axes are not ported yet: such a mesh
-    raises, and a data mesh (world 1, gloo, in this process) is accepted
-    and steps exactly as the single-device step does (no collective at
-    D = 1)."""
-    for over in (dict(seq=2), dict(pipe=2), dict(expert=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            p_make_mesh(PMeshConfig(data=1, **over), device="cpu")
+    """Once raising, ported now: the sharded step takes a mesh with a
+    seq, pipe or expert axis above 1 (8 ranks of torch's fake process
+    group, in this process), and a data mesh (world 1, gloo, in this
+    process) steps exactly as the single-device step does (no
+    collective at D = 1)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        for over in (dict(seq=2), dict(pipe=2), dict(expert=2)):
+            mesh = p_make_mesh(PMeshConfig(data=2, tensor=2, **over),
+                               device="cpu")
+            assert set(over) <= set(mesh.mesh_dim_names)
+            cfg = TINY.replace(moe_experts=4 if "expert" in over else 0)
+            init, step = make_train_step(lambda p, b: 0.0,
+                                         Transformer.param_specs(cfg), mesh,
+                                         device="cpu")
+            assert callable(init) and callable(step)
+    finally:
+        dist.destroy_process_group()
     from ray_tpu_torch._private.rpc import find_free_port
     dist.init_process_group("gloo", world_size=1, rank=0,
                             init_method=f"tcp://127.0.0.1:{find_free_port()}")
