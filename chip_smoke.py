@@ -2,8 +2,11 @@
 """Smoke run of ray_tpu_torch on one NVIDIA H100 (sm_90).
 
     python3 chip_smoke.py                    # from the repo root
-    python3 chip_smoke.py --profile FILE     # also profiles one step and
-                                             # writes the table to FILE
+    python3 chip_smoke.py --profile FILE     # also profiles one step
+                                             # (gpu_profiler) and writes
+                                             # its device time by kernel
+                                             # to FILE (its trace to
+                                             # FILE.trace)
                                              # (the trainer's step: to
                                              # FILE.trainer; the Llama
                                              # step: FILE.llama; an epoch
@@ -154,6 +157,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
      forward and half that of each backward kernel). Each part's losses
      must fall; its step ms, tokens/s, peak memory and launches are
      printed beside the card's name and power limit.
+ 11. tooling: the device tooling on the slice's configuration (phase 5's
+     model, batch and AdamW). (1) A fresh build of the kernels into a
+     temporary root inside a step region and a goodput ledger's
+     productive window: one build counted (kind "first"), its seconds
+     charged to goodput's compile bucket. (2) 20 steps with the sentinel
+     (util/cuda_sentinel.py) installed: no rebuild under "train.step"
+     after step 1, and the host-transfer bytes under "train.step" over
+     steps 2-20 equal to those the step forces (STEP_FORCED_BYTES). (3)
+     The sentinel's cost: 20 steps with it installed and 20 with it off,
+     interleaved, each between syncs; the installed median at most
+     SENTINEL_COST times the other. (4) One step traced by
+     gpu_profiler.profile_step: the trace names each flash kernel 12
+     times, as the launch counters count them, and its summed kernel
+     time is at most the step's wall time; the device time by kernel is
+     printed. (5) gpu_profiler.device_memory_profile(): the snapshot's
+     segments hold at least torch.cuda.memory_allocated(). (6)
+     ray_tpu_torch.init() and util.state.profile(device=True) against an
+     actor holding the card that runs the step in a loop: its entry
+     names the card, and its trace holds forward launches. Phases 7 and
+     8 print the bytes the sentinel counted under "learner.update" and
+     "learner.step" per update beside the stats block's size. Phases 7,
+     8, 9 and 10 take (3)'s interleave on their own paths (the PPO
+     learner's update, the IMPALA and APPO learners' updates, the Llama
+     step, and the ring, Ulysses, MoE and pipeline steps), COST_CALLS
+     calls each; the Llama step is held to the same bar, the others
+     printed.
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -225,6 +254,21 @@ KERNEL_SOURCES = {
     "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd_dq.cu",
                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1456")}
 BWD_LIBRARY = "aten._scaled_dot_product_flash_attention_backward (dQ, dK, dV)"
+# phase "tooling": the sentinel's counters, its steps, its cost bar, the
+# bytes the slice's step forces inside "train.step" (none: PERF.md §6),
+# and each kernel's function name in a trace
+COMPILES = "ray_tpu_jit_compiles_total"
+XFER = "ray_tpu_host_transfer_bytes_total"
+TOOLING_STEPS = 20
+SENTINEL_COST = 1.02      # installed median / uninstalled median, at most
+# the same interleave on the other paths: calls of each step or update
+# with the sentinel installed and as many with it off. The bar holds on
+# the GPT-2 and Llama steps; on the rest the host's noise moves the
+# medians more than it (PERF.md §6), and they are printed.
+COST_CALLS = 20
+STEP_FORCED_BYTES = 0
+TRACE_KERNELS = {"flash_fwd": "fwd_kernel", "flash_bwd_dkv": "dkv_kernel",
+                 "flash_bwd_dq": "dq_kernel"}
 
 
 @contextlib.contextmanager
@@ -714,6 +758,13 @@ def main(argv=None) -> int:
             records[name]["launches_by_path"].update(
                 {path: n[name] for path, n in by_path.items()})
 
+    with phase("tooling"):
+        tooling_launches = run_tooling(torch, fa, Transformer, cfg, kind, smi,
+                                       gen)
+        for name in records:
+            records[name]["launches_by_path"]["tooling"] = \
+                tooling_launches[name]
+
     # after the runs, so that a spill does not hide what the kernels do
     spilled = {src: n for src, n in spills.items()
                if src in HOPPER_SOURCES and n}
@@ -971,6 +1022,12 @@ def llama_loop(config):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(fa.launches)
+
+    def step():
+        nonlocal state
+        state, _ = train_step(state, batch)
+
+    cost = sentinel_cost(torch, step, COST_CALLS)
     if config["profile"]:   # every rank steps: the step's collectives
         if dist.get_rank() == 0:
             profile_step(torch, train_step, state, batch, config["profile"])
@@ -984,7 +1041,7 @@ def llama_loop(config):
         "tokens_s": world * cfg.max_seq_len * LLAMA_TIMED / dt,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "params": sum(p.numel() for p in state["params"].values()),
-        "launches": launches})
+        "launches": launches, "sentinel_ms": cost})
 
 
 def run_llama(kind, smi, profile):
@@ -1026,6 +1083,8 @@ def run_llama(kind, smi, profile):
     print(f"  step {m['step_ms']:.2f} ms, {m['tokens_s']:.1f} tokens/s, "
           f"peak memory {m['peak_gib']:.2f} GiB, launches {launches}; "
           f"{kind}; {smi}", flush=True)
+    check_sentinel_cost("the Llama step", m["sentinel_ms"], kind, smi,
+                        gate=True)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     # the untied head's logits start with unit variance (the final norm
@@ -1144,7 +1203,7 @@ def f32_learner(module, config):
 def run_rllib(torch, kind, smi, profile=None):
     """Phase "rllib" (the module docstring's phase 7); with `profile`, one
     epoch of the card learner's update (10 minibatch steps) under
-    torch.profiler, its per-op table written to that path."""
+    gpu_profiler.trace, its device time by kernel written to that path."""
     import functools
 
     import numpy as np
@@ -1200,12 +1259,10 @@ def run_rllib(torch, kind, smi, profile=None):
         raise AssertionError(f"update total_loss card {stats_card} vs CPU "
                              f"{stats_host}")
     if profile:
-        from torch.profiler import ProfilerActivity
-        with torch.profiler.profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        from ray_tpu_torch.util import gpu_profiler
+        with gpu_profiler.trace(profile + ".trace") as log_dir:
             card.update(batch, mb_size, 1, seed=2)
-            torch.cuda.synchronize()
-        write_profile(prof, profile)
+        write_profile(gpu_profiler.latest_trace_dir(log_dir), profile)
     del card, host
 
     runners = max(2, min(32, (os.cpu_count() or 4) - 2))
@@ -1284,16 +1341,21 @@ def run_pong(torch, cfg, runners, kind, smi):
     t0 = time.perf_counter()
     algo = config.build()
     build_s = time.perf_counter() - t0
-    timed = {"update": [], "rows": [], "sample": []}
+    timed = {"update": [], "rows": [], "sample": [], "bytes": [],
+             "keys": []}
     update, sample = algo.learner_group.update, algo.env_runners.sample_sync
 
     def timed_update(batch, *args, **kwargs):
+        timed["last"] = (batch, args, kwargs)
         torch.cuda.synchronize()
+        x0 = sentinel_series(XFER)
         t = time.perf_counter()
         out = update(batch, *args, **kwargs)
         torch.cuda.synchronize()
         timed["update"].append(time.perf_counter() - t)
         timed["rows"].append(len(batch["obs"]))
+        timed["bytes"].append(region_bytes("learner.update", x0))
+        timed["keys"].append(len(out))
         return out
 
     def timed_sample(*args):
@@ -1317,7 +1379,10 @@ def run_pong(torch, cfg, runners, kind, smi):
                   f"({res['num_env_steps_trained']} steps), sample "
                   f"{timed['sample'][i]:.3f} s, learner update {up_s:.4f} s "
                   f"({timed['rows'][i] * PONG_PPO['num_epochs'] / up_s:.1f}"
-                  f" rows/s), episodes {res['env_runners']['num_episodes']}"
+                  f" rows/s), {timed['bytes'][i]:g} bytes forced under "
+                  f"learner.update (the stats block: "
+                  f"{stats_block(timed['rows'][i], timed['keys'][i])} "
+                  f"bytes), episodes {res['env_runners']['num_episodes']}"
                   f", episode_reward_mean {res['episode_reward_mean']:.3f}; "
                   f"{kind}; {smi}", flush=True)
         states = ray_tpu_torch.get(
@@ -1329,8 +1394,13 @@ def run_pong(torch, cfg, runners, kind, smi):
         learner_weights = algo.learner_group.get_weights()
         devices = {str(p.device) for p in
                    algo.learner_group._local.module.parameters()}
+        batch, args, kwargs = timed["last"]
+        cost = sentinel_cost(torch, lambda: update(batch, *args, **kwargs),
+                             COST_CALLS)
     finally:
         algo.stop()
+    check_sentinel_cost("the PPO learner's update", cost, kind, smi,
+                        gate=False)
     print(f"  peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; learner "
           f"params on {devices}; runners {states[0]} (all alike: "
@@ -1350,6 +1420,15 @@ def run_pong(torch, cfg, runners, kind, smi):
         if not all(np.array_equal(w[k], v)
                    for k, v in learner_weights.items()):
             raise AssertionError("a runner's weights are not the learner's")
+
+
+def stats_block(rows, keys):
+    """Bytes of the f32 [minibatches, keys] stats block PPO's
+    Learner.update reads once a sweep at pong-ppo's settings."""
+    from ray_tpu_torch.rllib.core.learner import index_matrix
+    steps = len(index_matrix(rows, PONG_PPO["minibatch_size"],
+                             PONG_PPO["num_epochs"], 0))
+    return steps * keys * 4
 
 
 def cartpole_learns(seed):
@@ -1541,6 +1620,9 @@ def impala_learners(torch, np, kind, smi):
         if not update_err < 1e-3:
             raise AssertionError(f"{name} updates card {totals['card']} vs "
                                  f"CPU {totals['CPU']}")
+        check_sentinel_cost(f"the {name}'s update", sentinel_cost(
+            torch, lambda: card.update(batch), COST_CALLS), kind, smi,
+            gate=False)
         del card, host
 
 
@@ -1638,6 +1720,7 @@ def run_async(torch, np, config_cls, seconds, runners, kind, smi):
         rollout_fragment_length=IMPALA_T).debugging(seed=SEED)
     name = config_cls.__name__[:-len("Config")]
     torch.cuda.reset_peak_memory_stats()
+    x0 = sentinel_series(XFER)
     t0 = time.perf_counter()
     algo = config.build()
     build_s = time.perf_counter() - t0
@@ -1666,6 +1749,8 @@ def run_async(torch, np, config_cls, seconds, runners, kind, smi):
                                      f"{updates} updates")
             time.sleep(0.05)
         peak = torch.cuda.max_memory_allocated() / 2**30
+        forced = {r: region_bytes(r, x0)
+                  for r in ("learner.step", "learner.update")}
         actors = algo.env_runners.actors
         weights = algo.learner_group.get_weights()
         ray_tpu_torch.get([a.set_weights.remote(weights) for a in actors],
@@ -1688,7 +1773,11 @@ def run_async(torch, np, config_cls, seconds, runners, kind, smi):
           f"({trained / wall:.1f}/s); {updates} updates "
           f"({updates / wall:.2f}/s); learner busy {busy:.3f} s "
           f"({busy / wall:.1%} of the wall time); feed {json.dumps(feed)}; "
-          f"peak device memory {peak:.3f} GiB; last stats "
+          f"peak device memory {peak:.3f} GiB; bytes forced an update "
+          f"under learner.step {forced['learner.step'] / max(updates, 1):g}"
+          f", learner.update {forced['learner.update'] / max(updates, 1):g}"
+          f" (the stats block: {len(stats[-1]) if stats else 0} f64, "
+          f"copied without blocking); last stats "
           f"{json.dumps(stats[-1] if stats else {})}; learner params on "
           f"{devices}; runners {states[0]} (all alike: "
           f"{all(s == states[0] for s in states)}); {kind}; {smi}",
@@ -2016,6 +2105,12 @@ def parallel_loop():
         dt = time.perf_counter() - t0
         launches = [None] * world
         dist.all_gather_object(launches, dict(fa.launches))
+
+        def step():
+            nonlocal state
+            state, _ = train_step(state, batch)
+
+        out["sentinel_ms"] = sentinel_cost(torch, step, COST_CALLS)
         out.update({
             "losses": losses + [x.item() for x in timed],
             "step_ms": dt / PARALLEL_TIMED * 1e3,
@@ -2123,6 +2218,8 @@ def run_parallel(torch, fa, Transformer, kind, smi, gen, llama_first):
               f"{m['tokens_s']:.1f} tokens/s, peak memory "
               f"{m['peak_gib']:.2f} GiB, launches (rank 0) "
               f"{m['launches'][0]}; {kind}; {smi}", flush=True)
+        check_sentinel_cost(f"the {name} step", m["sentinel_ms"], kind, smi,
+                            gate=False)
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{name}: non-finite loss: {losses}")
         if not losses[-1] < losses[0]:
@@ -2178,22 +2275,348 @@ def run_parallel(torch, fa, Transformer, kind, smi, gen, llama_first):
     return by_path
 
 
-def profile_step(torch, train_step, state, batch, path):
-    """One step under torch.profiler; writes the device time per op and
-    kernel name to `path` and prints the top rows."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        train_step(state, batch)
+def sentinel_series(name):
+    """{sorted tag tuple: value} of one of the sentinel's counters in
+    this process's metrics registry."""
+    from ray_tpu_torch.util import metrics as um
+    out = {}
+    for m in um.collect_wire():
+        if m["name"] == name:
+            for row in m["series"]:
+                out[tuple(sorted(row["tags"].items()))] = row["value"]
+    return out
+
+
+def traced_as(name, kernel):
+    """Whether a trace's device event `name` is a launch of `kernel`
+    (its __global__ function's name, demangled or not)."""
+    return re.search(r"(?<![A-Za-z_])" + TRACE_KERNELS[kernel]
+                     + r"(?![A-Za-z_])", name) is not None
+
+
+def region_bytes(region, before=None):
+    """Host-transfer bytes the sentinel counted under `region` (since
+    the reading `before`)."""
+    key = (("region", region),)
+    now = sentinel_series(XFER).get(key, 0.0)
+    return now - (before or {}).get(key, 0.0)
+
+
+def sentinel_cost(torch, step, n):
+    """ms of `step()` with the sentinel installed and with it off (the
+    off switch: nothing patched), n calls each, interleaved (on, off, off,
+    on, ...), each call between syncs; leaves the sentinel installed."""
+    from ray_tpu_torch.util import cuda_sentinel
+    times = {"on": [], "off": []}
+    for i in range(2 * n):
+        on = i % 4 in (0, 3)
+        os.environ["RAY_TPU_JAX_SENTINEL"] = "1" if on else "0"
+        if on:
+            cuda_sentinel.install()
+        else:
+            cuda_sentinel.uninstall()
         torch.cuda.synchronize()
-    write_profile(prof, path)
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times["on" if on else "off"].append((time.perf_counter() - t0) * 1e3)
+    os.environ["RAY_TPU_JAX_SENTINEL"] = "1"
+    cuda_sentinel.install()
+    return times
 
 
-def write_profile(prof, path):
-    """Writes a profile's device time per op and kernel name to `path`
-    and prints the top rows."""
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=150)
+def check_sentinel_cost(what, times, kind, smi, gate):
+    """Print sentinel_cost's medians and fastest calls; with `gate`, fail
+    when the installed median is more than SENTINEL_COST times the
+    other."""
+    import statistics
+    on, off = times["on"], times["off"]
+    med_on, med_off = statistics.median(on), statistics.median(off)
+    print(f"  the sentinel's cost on {what}: median {med_on:.3f} ms "
+          f"installed, {med_off:.3f} ms uninstalled "
+          f"({100 * (med_on / med_off - 1):+.2f}%), fastest "
+          f"({100 * (min(on) / min(off) - 1):+.2f}%), {len(on)} "
+          f"interleaved calls each (installed {min(on):.3f}-{max(on):.3f}, "
+          f"uninstalled {min(off):.3f}-{max(off):.3f}); {kind}; {smi}",
+          flush=True)
+    if gate and med_on > SENTINEL_COST * med_off:
+        raise AssertionError(f"{what}: the installed sentinel's median is "
+                             f"{med_on / med_off:.4f}x the uninstalled one")
+
+
+class StepLoop:
+    """Phase "tooling"'s remote capture: an actor holding the card that
+    runs the slice's step in a loop on a thread of its own, so that a
+    device trace of its process sees the kernels."""
+
+    def __init__(self, tokens):
+        import threading
+
+        import torch
+
+        from ray_tpu_torch.models import GPT2_125M, Transformer
+        from ray_tpu_torch.parallel.train_step import adamw, make_train_step
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = GPT2_125M.replace(remat=False, attention_impl="auto",
+                                loss_chunk=0)
+        model = Transformer(cfg, seed=SEED)
+        init_state, self._step = make_train_step(
+            lambda p, bt: model.loss(bt),
+            optimizer=adamw(1e-4, weight_decay=0.01))
+        self._state = init_state(dict(model.named_parameters()))
+        self._batch = {"tokens": torch.tensor(tokens, device="cuda")}
+        self._stop = threading.Event()
+        self.steps = 0
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="step-loop")
+        self._thread.start()
+
+    def _loop(self):
+        import torch
+        torch.cuda.set_device(0)
+        try:
+            while not self._stop.is_set():
+                self._state, metrics = self._step(self._state, self._batch)
+                torch.cuda.synchronize()
+                self.steps += 1
+        except Exception as e:  # noqa: BLE001 - reported by info()
+            self.error = f"{type(e).__name__}: {e}"
+
+    def info(self):
+        return {"pid": os.getpid(), "steps": self.steps,
+                "error": getattr(self, "error", None)}
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=60)
+        return self.steps
+
+
+def run_tooling(torch, fa, Transformer, cfg, kind, smi, gen):
+    """Phase "tooling" (the module docstring's phase 11); returns the
+    launch counts of the traced step."""
+    import pickle
+    from pathlib import Path
+
+    from ray_tpu_torch._private import goodput
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step
+    from ray_tpu_torch.util import cuda_sentinel, gpu_profiler
+
+    os.environ["RAY_TPU_JAX_SENTINEL"] = "1"
+    if not cuda_sentinel.install():
+        raise AssertionError("the sentinel did not install")
+
+    # (1) a fresh build, its seconds charged to goodput's compile
+    seconds = []
+    _build.build_listeners.append(seconds.append)
+    root = tempfile.mkdtemp(prefix="chip_smoke_build_")
+    before = sentinel_series(COMPILES)
+    ledger = goodput.ledger("chip_smoke.tooling").bind()
+    try:
+        with goodput.bucket(goodput.PRODUCTIVE), \
+                cuda_sentinel.step_region("tooling.build"):
+            _build.build(root=Path(root))
+        totals = ledger.totals()
+    finally:
+        goodput.unbind()
+        _build.build_listeners.remove(seconds.append)
+        shutil.rmtree(root, ignore_errors=True)
+    first = sentinel_series(COMPILES).get(
+        (("fn", "tooling.build"), ("kind", "first")), 0.0) - before.get(
+        (("fn", "tooling.build"), ("kind", "first")), 0.0)
+    print(f"  a fresh build: {seconds} s; goodput compile "
+          f"{totals.get('compile', 0.0):.4f} s, productive_step "
+          f"{totals.get(goodput.PRODUCTIVE, 0.0):.4f} s; counted "
+          f"{first:g} (kind first, fn tooling.build)", flush=True)
+    if not (len(seconds) == 1 and first == 1.0
+            and totals.get("compile") == seconds[0] > 0.0):
+        raise AssertionError(f"build {seconds}, counted {first}, goodput "
+                             f"{totals}")
+
+    # (2) the slice's steps under the sentinel: no rebuild after step 1,
+    # and inside "train.step" exactly the bytes the step forces
+    model = Transformer(cfg, seed=SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, cfg.max_seq_len + 1),
+                           generator=gen, device="cuda")
+    batch = {"tokens": tokens}
+    init_state, train_step = make_train_step(
+        lambda p, bt: model.loss(bt), optimizer=adamw(1e-4, weight_decay=0.01))
+    state = init_state(dict(model.named_parameters()))
+    c0 = sentinel_series(COMPILES)
+    state, metrics = train_step(state, batch)
+    losses = [metrics["loss"].item()]
+    c1, x1 = sentinel_series(COMPILES), sentinel_series(XFER)
+    for _ in range(TOOLING_STEPS - 1):
+        state, metrics = train_step(state, batch)
+        losses.append(metrics["loss"].item())
+    torch.cuda.synchronize()
+    c2 = sentinel_series(COMPILES)
+    step_keys = {k: (("fn", "train.step"), ("kind", k))
+                 for k in ("first", "recompile")}
+    built = {k: c1.get(key, 0.0) - c0.get(key, 0.0)
+             for k, key in step_keys.items()}
+    rebuilt = c2.get(step_keys["recompile"], 0.0) - \
+        c1.get(step_keys["recompile"], 0.0)
+    forced = region_bytes("train.step", x1)
+    untracked = region_bytes("untracked", x1)
+    print(f"  {TOOLING_STEPS} steps under the sentinel: builds in step 1 "
+          f"{built}, recompiles in steps 2-{TOOLING_STEPS} {rebuilt:g}; "
+          f"bytes forced under train.step in steps 2-{TOOLING_STEPS} "
+          f"{forced:g} (the code forces {STEP_FORCED_BYTES}), untracked "
+          f"{untracked:g} (the loss read after each step: "
+          f"{(TOOLING_STEPS - 1) * metrics['loss'].element_size()}); "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    if rebuilt != 0.0:
+        raise AssertionError(f"{rebuilt} rebuilds under train.step")
+    if forced != STEP_FORCED_BYTES:
+        raise AssertionError(f"{forced} bytes forced under train.step, "
+                             f"the code forces {STEP_FORCED_BYTES}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}")
+
+    # (3) the sentinel's cost: steps with it installed and with it off
+    def step():
+        nonlocal state, metrics
+        state, metrics = train_step(state, batch)
+
+    check_sentinel_cost("the GPT-2 step",
+                        sentinel_cost(torch, step, TOOLING_STEPS), kind, smi,
+                        gate=True)
+
+    # (4) a trace of one step: the kernels as the launch counters count
+    # them, their summed time within the step's wall time
+    wall = []
+
+    def timed_step():
+        t = time.perf_counter()
+        out = train_step(state, batch)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    trace_root = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        fa.reset_launches()
+        (state, metrics), log_dir = gpu_profiler.profile_step(
+            timed_step, log_dir=trace_root)
+        launches = dict(fa.launches)
+        run = gpu_profiler.latest_trace_dir(log_dir)
+        summary = gpu_profiler.summary(run)
+        table = gpu_profiler.summary_table(run, rows=15)
+        trace_mb = sum(os.path.getsize(os.path.join(run, f))
+                       for f in os.listdir(run)) / 2**20
+    finally:
+        shutil.rmtree(trace_root, ignore_errors=True)
+    rows = summary["kernels"]
+    counts = {n: sum(r["count"] for k, r in rows.items()
+                     if traced_as(k, n))
+              for n in TRACE_KERNELS}
+    kernel_ms = sum(r["us"] for r in rows.values()
+                    if r["cat"] == "kernel") / 1e3
+    flash_ms = {n: sum(r["us"] for k, r in rows.items()
+                       if traced_as(k, n)) / 1e3
+                for n in TRACE_KERNELS}
+    print(f"  traced step: wall {wall[0]:.3f} ms, kernels {kernel_ms:.3f} "
+          f"ms in {sum(r['count'] for r in rows.values())} device events, "
+          f"busy {summary['busy_us'] / 1e3:.3f} ms of a "
+          f"{summary['window_us'] / 1e3:.3f} ms window; flash kernels in "
+          f"the trace {counts} ({flash_ms} ms), launch counters "
+          f"{launches}; "
+          f"trace {trace_mb:.1f} MiB; {kind}; {smi}", flush=True)
+    print("\n".join("    " + line for line in table.splitlines()),
+          flush=True)
+    want = {n: cfg.n_layers for n in TRACE_KERNELS}
+    if counts != want or launches != want:
+        raise AssertionError(f"trace {counts}, counters {launches}, "
+                             f"expected {want}")
+    if not 0.0 < kernel_ms <= wall[0]:
+        raise AssertionError(f"kernel time {kernel_ms} ms, step wall "
+                             f"{wall[0]} ms")
+
+    # (5) the caching allocator's snapshot holds what is allocated
+    blob = gpu_profiler.device_memory_profile()
+    snap = pickle.loads(blob)
+    dev = torch.cuda.current_device()
+    segments = [g for g in snap["segments"] if g.get("device", dev) == dev]
+    reserved = sum(g["total_size"] for g in segments)
+    in_use = sum(g["allocated_size"] for g in segments)
+    allocated = torch.cuda.memory_allocated()
+    print(f"  memory snapshot: {len(blob) / 2**20:.2f} MiB pickled, "
+          f"{len(segments)} segments, {reserved / 2**30:.3f} GiB reserved, "
+          f"{in_use / 2**30:.3f} GiB allocated in them; "
+          f"memory_allocated() {allocated / 2**30:.3f} GiB", flush=True)
+    if not (segments and reserved >= allocated > 0):
+        raise AssertionError(f"segments {len(segments)} hold {reserved} "
+                             f"bytes, {allocated} allocated")
+    tokens = tokens.cpu().numpy()
+    del model, state, batch, train_step, init_state, metrics
+    torch.cuda.empty_cache()
+
+    # (6) a remote capture: util.state.profile(device=True) against an
+    # actor that runs the step in a loop
+    import ray_tpu_torch
+    from ray_tpu_torch.util import state as state_api
+    root = tempfile.mkdtemp(prefix="chip_smoke_tooling_")
+    out = {"profiles": []}
+    try:
+        ray_tpu_torch.init(num_cpus=2, _session_root=root)
+        looper = ray_tpu_torch.remote(num_gpus=1)(StepLoop).remote(tokens)
+        info = ray_tpu_torch.get(looper.info.remote(), timeout=300)
+        deadline = time.perf_counter() + 300
+        while info["steps"] < 3:
+            if info["error"] or time.perf_counter() > deadline:
+                raise AssertionError(f"the actor's loop stalled: {info}")
+            time.sleep(0.5)
+            info = ray_tpu_torch.get(looper.info.remote(), timeout=60)
+        t0 = time.perf_counter()
+        out = state_api.profile(duration=2.0, device=True)
+        profile_s = time.perf_counter() - t0
+        steps = ray_tpu_torch.get(looper.stop.remote(), timeout=120)
+        mine = [p for p in out["profiles"] if p["pid"] == info["pid"]]
+        others = [{k: p.get(k) for k in ("label", "skipped", "devices")}
+                  for p in out["profiles"] if p["pid"] != info["pid"]]
+        entry = mine[0] if mine else {}
+        remote = {"kernels": {}, "busy_us": 0.0, "window_us": 0.0}
+        if "xplane_dir" in entry:
+            remote = gpu_profiler.summary(gpu_profiler.latest_trace_dir(
+                entry["xplane_dir"]))
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+        for p in out["profiles"]:   # each traced process's capture
+            if p.get("xplane_dir"):
+                shutil.rmtree(p["xplane_dir"], ignore_errors=True)
+    remote_fwd = sum(r["count"] for k, r in remote["kernels"].items()
+                     if traced_as(k, "flash_fwd"))
+    entry = {k: v for k, v in entry.items() if k != "proc_uid"}
+    print(f"  remote capture: {profile_s:.2f} s; the actor's entry {entry};"
+          f" its trace: {remote_fwd} forward launches, device busy "
+          f"{remote['busy_us'] / 1e3:.1f} ms of a "
+          f"{remote['window_us'] / 1e3:.1f} ms window; the actor ran {steps} "
+          f"steps; the other processes {others}", flush=True)
+    if not (kind in entry.get("devices", ()) and remote_fwd > 0):
+        raise AssertionError(f"remote capture: {entry}, forward launches "
+                             f"{remote_fwd}")
+    return launches
+
+
+def profile_step(torch, train_step, state, batch, path):
+    """One step under gpu_profiler.profile_step (torch.profiler, CPU and
+    CUDA activities); writes its device time by kernel to `path` (the
+    Chrome trace beside it, in `path`.trace) and prints the top rows."""
+    from ray_tpu_torch.util import gpu_profiler
+    _, log_dir = gpu_profiler.profile_step(train_step, state, batch,
+                                           log_dir=path + ".trace")
+    write_profile(gpu_profiler.latest_trace_dir(log_dir), path)
+
+
+def write_profile(run, path):
+    """Writes the device time by kernel of gpu_profiler capture `run`
+    to `path` and prints the top rows."""
+    from ray_tpu_torch.util import gpu_profiler
+    table = gpu_profiler.summary_table(run, rows=150)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(table)

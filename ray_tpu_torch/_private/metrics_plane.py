@@ -384,6 +384,9 @@ class Watchdog:
         # goodput probe: job -> deque of (monotonic ts, {bucket: total})
         # snapshots spanning the sliding window
         self._goodput_window: Dict[str, "deque"] = {}
+        # jax sentinel storm probe: step-region label -> monotonic ts
+        # its first compile series appeared (warmup grace clock)
+        self._jit_first_seen: Dict[str, float] = {}
         # serve SLO probes: last cumulative per-deployment request
         # histogram / per-(deployment, code) request counts (and shed
         # counts, for the shed-burn probe); the probe judges
@@ -1031,6 +1034,83 @@ class Watchdog:
                     f"or overloaded and writers are shedding against "
                     f"its full window", shard=shard, value=inflight)
 
+    def _probe_jax_sentinel(self, series: Dict[str, float]) -> None:
+        """`jit_recompile_storm` / `unexpected_host_transfer`: per-
+        harvest deltas of the jax sentinel's counters
+        (util/jax_sentinel.py; static twins graftlint RT020/RT021).
+
+          - a step-region label whose kind=recompile compile count
+            grows by >= jit_recompiles within one window is recompiling
+            in steady state — a shape/static-arg/donation hazard is
+            making XLA rebuild the step it should be replaying. Labels
+            get a warmup grace (jit_recompile_warmup_s from their first
+            compile): a cold start legitimately compiles several
+            modules under one label across a couple of windows.
+          - host-transfer bytes accounted INSIDE a step region growing
+            by >= host_transfer_bytes per window mean the hot step is
+            forcing device→host syncs it shouldn't (the sanctioned
+            forcing points live outside the regions).
+
+        region="untracked"/fn="untracked" series are never judged —
+        outside a step region a transfer or compile is by definition
+        not on a hot path. First-appearance series BASELINE (prev round
+        None), so a real storm alerts within two harvest intervals."""
+        now = time.monotonic()
+        fns_seen = set()
+        for key in series:
+            if key.startswith("ray_tpu_jit_compiles_total{"):
+                fn = self._series_tags(key).get("fn")
+                if fn:
+                    fns_seen.add(fn)
+                    self._jit_first_seen.setdefault(fn, now)
+        # labels gone from the harvest drop their warmup clocks — the
+        # always-on GCS stays bounded under driver churn (a returning
+        # label just re-enters warmup grace)
+        for fn in [f for f in self._jit_first_seen
+                   if f not in fns_seen]:
+            del self._jit_first_seen[fn]
+        for key, v in series.items():
+            prev = self._prev_series.get(key)
+            if prev is None:
+                continue  # baseline round for this series
+            delta = v - prev
+            if delta <= 0:
+                continue
+            if key.startswith("ray_tpu_jit_compiles_total{"):
+                tags = self._series_tags(key)
+                fn = tags.get("fn", "?")
+                if tags.get("kind") != "recompile" \
+                        or fn == "untracked":
+                    continue
+                first = self._jit_first_seen.get(fn, now)
+                if now - first < self.jit_recompile_warmup_s \
+                        or delta < self.jit_recompiles:
+                    continue
+                self._alert(
+                    "jit_recompile_storm", key,
+                    f"step region {fn!r}: {delta:g} XLA recompile(s) "
+                    f"within one harvest window (total {v:g}) — the "
+                    f"step is recompiling in steady state instead of "
+                    f"replaying its cache; look for shape-varying "
+                    f"args, python scalars traced as constants, or "
+                    f"donation retriggers (static twin: graftlint "
+                    f"RT020)", severity="ERROR", fn=fn, value=delta)
+            elif key.startswith("ray_tpu_host_transfer_bytes_total{"):
+                region = self._series_tags(key).get("region", "?")
+                if region == "untracked":
+                    continue
+                if delta < self.host_transfer_bytes:
+                    continue
+                self._alert(
+                    "unexpected_host_transfer", key,
+                    f"step region {region!r}: {delta:g} bytes forced "
+                    f"device→host within one harvest window "
+                    f"(> {self.host_transfer_bytes:g}) — a hidden "
+                    f".item()/np coercion/device_get is syncing the "
+                    f"hot step (static twin: graftlint RT021; spans: "
+                    f"host_sync.* in `ray_tpu timeline --spans`)",
+                    severity="ERROR", region=region, value=delta)
+
     def _probe_goodput(self, series: Dict[str, float],
                        interval_s: float) -> None:
         """`goodput_regression`: a job's productive_step fraction of
@@ -1123,6 +1203,7 @@ class Watchdog:
                       lambda: self._probe_serve_shed(snaps),
                       lambda: self._probe_elastic(snaps),
                       lambda: self._probe_gang_wedge(series),
+                      lambda: self._probe_jax_sentinel(series),
                       lambda: self._probe_replay_stall(series),
                       lambda: self._probe_goodput(series, interval_s),
                       lambda: self._probe_harvest_coverage(

@@ -356,19 +356,70 @@ def collect_local(duration_s: float = 5.0,
 
 
 # ---------------------------------------------------------------------
-# Device mode
+# Device mode (torch.profiler traces via util.gpu_profiler)
 # ---------------------------------------------------------------------
+
+
+# The fan-out can reach a process twice, as in collect_local; two
+# torch.profiler sessions at once are two CUPTI subscribers, which the
+# CUDA profiling API refuses (and a process has died of). The first
+# arrival traces; later ones wait for it and share its report.
+_device_lock = threading.Lock()
+_device_session: Optional[Dict[str, Any]] = None
 
 
 def device_profile(duration_s: float = 5.0,
                    log_dir: Optional[str] = None) -> Dict[str, Any]:
-    """`ray_tpu profile --device`: a device trace of this process. The
-    reference traces XLA devices through jax's profiler; the port's
-    torch.profiler counterpart is not written yet."""
-    raise NotImplementedError(
-        "device profiling is not ported yet (ROADMAP.md, Queue 1 item 5: "
-        "util/tpu_profiler.py and the _private/profiler.py device trace "
-        "become torch.profiler)")
+    """`ray_tpu profile --device`: run a torch.profiler trace (CPU and
+    CUDA activities) on this process for `duration_s` and report its
+    directory under `xplane_dir`, the key the JAX package's callers
+    read (it holds a Chrome trace here, not xplane). Only processes that
+    already initialized CUDA participate — initializing it here would
+    claim a card out from under the workload."""
+    global _device_session
+    from ray_tpu_torch._private import spans as spans_lib
+    base = {"proc_uid": spans_lib.PROC_UID, "pid": os.getpid(),
+            "label": spans_lib.process_label(),
+            "node_id": spans_lib.process_node_id(),
+            "worker_id": _process_worker_id,
+            "actor_id": _process_actor_id}
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return {**base, "skipped": "CUDA not initialized in this process"}
+    duration_s = min(120.0, max(0.05, float(duration_s)))
+    with _device_lock:
+        session = _device_session
+        if session is None:
+            session = _device_session = {"done": threading.Event(),
+                                         "report": None}
+            owner = True
+        else:
+            owner = False
+    if not owner:
+        session["done"].wait(duration_s + 60.0)
+        return session["report"] or {
+            **base, "error": "a concurrent device trace did not finish"}
+    report = None
+    try:
+        import tempfile
+
+        from ray_tpu_torch.util import gpu_profiler
+        log_dir = log_dir or os.path.join(
+            tempfile.gettempdir(),
+            f"ray_tpu_trace_{os.getpid()}_{int(time.time())}")
+        with gpu_profiler.trace(log_dir):
+            time.sleep(duration_s)
+        report = {**base, "xplane_dir": log_dir,
+                  "devices": [torch.cuda.get_device_name(i)
+                              for i in range(torch.cuda.device_count())]}
+    except Exception as e:  # noqa: BLE001 - report, don't kill the fan-out
+        report = {**base, "error": f"{type(e).__name__}: {e}"}
+    finally:
+        session["report"] = report
+        session["done"].set()
+        with _device_lock:
+            _device_session = None
+    return report
 
 
 # ---------------------------------------------------------------------

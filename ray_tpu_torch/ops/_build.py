@@ -22,8 +22,9 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
@@ -51,6 +52,10 @@ SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "SYNCS")
 _SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
 
 _loaded: Dict[str, object] = {}  # C entry point name -> ctypes function
+
+# called with the wall seconds of each build() that compiled a source and
+# succeeded, on the building thread (util/cuda_sentinel.py counts them)
+build_listeners: List[Callable[[float], None]] = []
 
 
 class KernelBuildError(RuntimeError):
@@ -123,6 +128,7 @@ def build(csrc: Path = CSRC, root: Path = BUILD_ROOT,
     if not todo:
         return out
     nvcc = find_nvcc()
+    t0 = time.perf_counter()
     out.mkdir(parents=True, exist_ok=True)
     procs = []
     for src in todo:
@@ -143,6 +149,9 @@ def build(csrc: Path = CSRC, root: Path = BUILD_ROOT,
             os.replace(tmp, out / _lib_name(src))
     if failed:
         raise KernelBuildError("nvcc failed for " + "\n".join(failed))
+    seconds = time.perf_counter() - t0
+    for listener in list(build_listeners):
+        listener(seconds)
     return out
 
 

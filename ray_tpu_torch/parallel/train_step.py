@@ -37,6 +37,7 @@ global loss and grad even where the ranks' masks differ.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
@@ -50,6 +51,7 @@ from ray_tpu_torch.parallel.mesh import (AXIS_DATA, AXIS_SEQ,
                                          mesh_axis_names, mesh_shape)
 from ray_tpu_torch.parallel.sharding import (ShardingRules, flatten_specs,
                                              logical_sharding, place)
+from ray_tpu_torch.util import cuda_sentinel
 
 OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
 
@@ -144,7 +146,7 @@ def make_train_step(
             [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
         return _update(state, loss, gnorm, aux)
 
-    return init_state, train_step
+    return init_state, _in_region(train_step)
 
 
 # the axes a data-parallel (param_specs None) step splits the batch over
@@ -237,7 +239,17 @@ def _sharded_step(loss_fn, specs, mesh, rules, optimizer, dev):
             dist.all_reduce(sq)
         return _update(state, loss, torch.sqrt(sq), aux)
 
-    return init_state, train_step
+    return init_state, _in_region(train_step)
+
+
+def _in_region(step):
+    """The step inside the sentinel's "train.step" region, as the JAX
+    package runs its jitted step (util/cuda_sentinel.py)."""
+    @functools.wraps(step)
+    def train_step(state, batch):
+        with cuda_sentinel.step_region("train.step"):
+            return step(state, batch)
+    return train_step
 
 
 def _update(state, loss, gnorm, aux):

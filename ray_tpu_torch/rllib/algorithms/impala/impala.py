@@ -30,6 +30,7 @@ from ray_tpu_torch.rllib.algorithms.algorithm_config import AlgorithmConfig
 from ray_tpu_torch.rllib.algorithms.impala.vtrace import \
     from_importance_weights
 from ray_tpu_torch.rllib.core.learner import Learner
+from ray_tpu_torch.util import cuda_sentinel
 
 
 class ImpalaConfig(AlgorithmConfig):
@@ -234,7 +235,8 @@ class Impala(Algorithm):
                 except queue.Empty:
                     continue
                 t0 = time.perf_counter()
-                with _spans.span("learner.step", steps=steps):
+                with _spans.span("learner.step", steps=steps), \
+                        cuda_sentinel.step_region("learner.step"):
                     stats = self.learner_group.update(batch)
                 if self._feed is not None:
                     self._feed.add_busy(time.perf_counter() - t0)

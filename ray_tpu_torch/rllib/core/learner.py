@@ -192,7 +192,9 @@ class Learner:
         is gathered there from an index tensor, and the stats are read
         once, at the end of the sweep."""
         from ray_tpu_torch._private import spans as _spans
-        with _spans.span("learner.update", num_iters=num_iters):
+        from ray_tpu_torch.util import cuda_sentinel
+        with _spans.span("learner.update", num_iters=num_iters), \
+                cuda_sentinel.step_region("learner.update"):
             assert self._optimizer is not None, "call build() first"
             n = len(batch["obs"])
             idx = torch.from_numpy(index_matrix(

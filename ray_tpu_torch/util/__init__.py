@@ -10,6 +10,7 @@ from ray_tpu_torch.util.placement_group import (  # noqa: F401
 )
 from ray_tpu_torch.util.actor_pool import ActorPool  # noqa: F401
 from ray_tpu_torch.util.queue import Queue  # noqa: F401
+from ray_tpu_torch.util import gpu_profiler  # noqa: F401
 from ray_tpu_torch.util.scheduling_strategies import (  # noqa: F401
     NodeAffinitySchedulingStrategy,
     PlacementGroupSchedulingStrategy,
@@ -20,5 +21,5 @@ __all__ = [
     "PlacementGroup", "placement_group", "remove_placement_group",
     "get_current_placement_group", "placement_group_table",
     "PlacementGroupSchedulingStrategy", "NodeAffinitySchedulingStrategy",
-    "SpreadSchedulingStrategy", "Queue", "ActorPool",
+    "SpreadSchedulingStrategy", "Queue", "ActorPool", "gpu_profiler",
 ]

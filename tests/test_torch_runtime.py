@@ -44,7 +44,8 @@ VERBATIM = [
     "_private/gcs.py", "_private/goodput.py", "_private/ids.py",
     "_private/log_monitor.py", "_private/log_plane.py",
     "_private/memory_monitor.py", "_private/memory_plane.py",
-    "_private/metrics_history.py", "_private/node_main.py",
+    "_private/metrics_history.py", "_private/metrics_plane.py",
+    "_private/node_main.py",
     "_private/node_manager.py", "_private/object_ref.py",
     "_private/object_store.py", "_private/ownership.py", "_private/rpc.py",
     "_private/runtime_env.py", "_private/scheduler.py",
@@ -52,6 +53,8 @@ VERBATIM = [
     "_private/spans.py", "_private/state.py", "_private/task_events.py",
     "_private/usage.py", "_private/wait_graph.py", "_private/worker_main.py",
     "api.py", "chaos.py", "exceptions.py",
+    "lint/__init__.py", "lint/__main__.py", "lint/concurrency.py",
+    "lint/engine.py",
     "native/Makefile", "native/__init__.py", "native/store_arena.cpp",
     "train/backend.py", "train/checkpoint_manager.py",
     "train/data_parallel_trainer.py", "train/elastic.py",
@@ -187,11 +190,37 @@ def test_unported_libraries_raise_naming_roadmap(cluster):
         f.bind()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ray_tpu_torch.init("ray://localhost:1")
-    from ray_tpu_torch._private.profiler import device_profile
     from ray_tpu_torch.util import state
-    for call in (device_profile, state.serve_fleet, state.replay_shards):
+    for call in (state.serve_fleet, state.replay_shards):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+
+def test_device_profile_through_the_cluster(cluster):
+    """util.state.profile(device=True): one device_profile entry per
+    worker (and the driver), each skipped here, where no process has
+    initialized CUDA; an actor's worker is among them."""
+    from ray_tpu_torch.util import state
+
+    @ray_tpu_torch.remote
+    class Pid:
+        def pid(self):
+            return os.getpid()
+
+    actor = Pid.remote()
+    pid = ray_tpu_torch.get(actor.pid.remote(), timeout=60)
+    workers = {w["worker_id"] for w in state.list_workers()
+               if w.get("alive", True)}
+    out = state.profile(duration=0.1, device=True)
+    profiles = out["profiles"]
+    assert out["unreachable"] == []
+    assert len({p["proc_uid"] for p in profiles}) == len(profiles)
+    assert all("CUDA not initialized" in p["skipped"] for p in profiles)
+    by_worker = [p["worker_id"] for p in profiles if p["worker_id"]]
+    assert sorted(by_worker) == sorted(set(by_worker))
+    assert workers <= set(by_worker)
+    assert pid in {p["pid"] for p in profiles}
+    ray_tpu_torch.kill(actor)
 
 
 def test_gpu_manager_counts_fake_visible_and_nvidia_smi(monkeypatch):
