@@ -183,6 +183,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
      step, and the ring, Ulysses, MoE and pipeline steps), COST_CALLS
      calls each; the Llama step is held to the same bar, the others
      printed.
+ 12. offpolicy: RLlib's off-policy family on the card, f32 with TF32 off,
+     at the JAX package's own widths and sizes. (1) DQN's (64, 64)
+     dueling double-Q learner, SAC's and TD3's (128, 128) learners on
+     the card against the port's CPU learner (and an f64 one) from the
+     same weights and the same noise on one batch (32, 256, 100 rows):
+     the loss (1e-5 relative) and the grads (GRAD_RTOL or GRAD_F64_RTOL,
+     as in 7), then one update and the target step (DQN's hard sync,
+     the polyak step): total_loss 1e-5 relative, params and targets
+     GRAD_RTOL relative norm. (2) DQN CartPole at
+     tests/test_rllib_offpolicy.py's learning config
+     (rllib_learning_sweep.dqn_cartpole_config) at SEED, the learner
+     local on the card: episode_reward_mean >= 150 within 1,000
+     iterations; the bytes forced an update under "learner.update"
+     equal to FORCED_BYTES. (3) The same with prioritized replay, 30
+     iterations after learning starts: the priorities move. (4) SAC,
+     TD3 and DDPG on Pendulum-v1 (Pendulum, registered here: the card's
+     machine has no gymnasium) at the JAX learning tests' settings, 30,
+     30 and 5 iterations after learning starts: finite stats, the
+     runner on the CPU, FORCED_BYTES an update. (5) ray_tpu_torch.init()
+     and DQN through the replay plane for REPLAY_S: 2 runner actors, 2
+     prioritized shards of 25,000, batch 32; priority updates reach the
+     shards, the learner's batches are CUDA tensors from the DeviceFeed,
+     util.state.replay_shards() lists both alive. Each part prints its
+     update ms, updates/s, env steps/s and peak memory; the learners'
+     params are CUDA tensors. The path launches none of the flash
+     kernels (launches_by_path "offpolicy", which must be 0).
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -764,6 +790,16 @@ def main(argv=None) -> int:
         for name in records:
             records[name]["launches_by_path"]["tooling"] = \
                 tooling_launches[name]
+
+    with phase("offpolicy"):
+        fa.reset_launches()
+        run_offpolicy(torch, kind, smi)
+        if any(fa.launches.values()):
+            raise AssertionError(f"the offpolicy path launched flash "
+                                 f"kernels: {dict(fa.launches)}")
+        for name in records:
+            records[name]["launches_by_path"]["offpolicy"] = \
+                fa.launches[name]
 
     # after the runs, so that a spill does not hide what the kernels do
     spilled = {src: n for src, n in spills.items()
@@ -1840,6 +1876,485 @@ def run_impala_cartpole():
         raise AssertionError(f"IMPALA CartPole reached {BAR} in "
                              f"{len(reached)} of "
                              f"{len(IMPALA_CARTPOLE_SEEDS)} seeds")
+
+
+# phase "offpolicy": DQN's, SAC's and TD3's learners, DQN CartPole,
+# prioritized DQN, SAC, TD3 and DDPG on Pendulum, the replay plane (the
+# module docstring's phase 12)
+class Pendulum:
+    """Pendulum-v1 for phase "offpolicy": the card's machine has no
+    gymnasium, so the script registers this through the port's
+    register_env. Gymnasium's classic-control equations in numpy (g 10.0,
+    m 1, l 1, dt 0.05, max speed 8, max torque 2, reward -(angle^2 + 0.1
+    speed^2 + 0.001 torque^2), truncation at 200 steps, reset angle ~
+    U(-pi, pi) and speed ~ U(-1, 1) from np.random.default_rng(seed)),
+    in gymnasium's own expressions and dtypes, so that a seed and the
+    same actions give gymnasium's Pendulum-v1 bit for bit
+    (tests/test_torch_sac_td3.py holds it)."""
+
+    MAX_SPEED, MAX_TORQUE, DT, G, M, L = 8, 2.0, 0.05, 10.0, 1.0, 1.0
+    MAX_STEPS = 200
+
+    def __init__(self, config=None):
+        import numpy as np
+
+        from ray_tpu_torch.rllib.env.spaces import Box
+        high = np.array([1.0, 1.0, self.MAX_SPEED], dtype=np.float32)
+        self.observation_space = Box(-high, high)
+        self.action_space = Box(-self.MAX_TORQUE, self.MAX_TORQUE,
+                                shape=(1,))
+        self._rng = np.random.default_rng()
+        self._state = np.zeros(2)
+        self._steps = 0
+
+    def _obs(self):
+        import numpy as np
+        theta, thetadot = self._state
+        return np.array([np.cos(theta), np.sin(theta), thetadot],
+                        dtype=np.float32)
+
+    def reset(self, seed=None):
+        import numpy as np
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        high = np.array([np.pi, 1.0])
+        self._state = self._rng.uniform(low=-high, high=high)
+        self._steps = 0
+        return self._obs(), {}
+
+    def step(self, action):
+        import numpy as np
+        th, thdot = self._state
+        g, m, l, dt = self.G, self.M, self.L, self.DT
+        u = np.clip(np.asarray(action, np.float32), -self.MAX_TORQUE,
+                    self.MAX_TORQUE)[0]
+        angle = ((th + np.pi) % (2 * np.pi)) - np.pi
+        costs = angle ** 2 + 0.1 * thdot ** 2 + 0.001 * (u ** 2)
+        newthdot = thdot + (3 * g / (2 * l) * np.sin(th)
+                            + 3.0 / (m * l ** 2) * u) * dt
+        newthdot = np.clip(newthdot, -self.MAX_SPEED, self.MAX_SPEED)
+        newth = th + newthdot * dt
+        self._state = np.array([newth, newthdot])
+        self._steps += 1
+        return self._obs(), -costs, False, self._steps >= self.MAX_STEPS, {}
+
+    def close(self):
+        pass
+
+
+# the replay plane's run: runner actors and their fragment, prioritized
+# shards and their capacity (a buffer of 50,000), the wall seconds
+REPLAY_RUNNERS, REPLAY_FRAGMENT = 2, 32
+REPLAY_SHARDS, REPLAY_CAPACITY = 2, 25_000
+REPLAY_S = 30.0
+# iterations timed after learning starts: prioritized DQN, and SAC, TD3
+# and DDPG on Pendulum
+PRIORITIZED_ITERS = 30
+CONTINUOUS_ITERS = {"SAC": 30, "TD3": 30, "DDPG": 5}
+# the bytes a local update forces to the host: its stats, one f64 block
+# (Learner.update's sweep_stats) of the scalars (DQN 5, SAC 8, TD3 5)
+# and the last minibatch's per-row arrays (DQN td_error, td_indexes,
+# td_epochs of 32 rows; SAC td_error, td_indexes of 256; TD3 of 100)
+FORCED_BYTES = {"DQN": 8 * (5 + 3 * 32), "SAC": 8 * (8 + 2 * 256),
+                "TD3": 8 * (5 + 2 * 100), "DDPG": 8 * (5 + 2 * 100)}
+
+
+def offpolicy_batch(np, name, rows):
+    """A replay batch of the learner's shapes, made with numpy from SEED:
+    CartPole observations and actions for DQN (with the buffer's indexes
+    and epochs), Pendulum's for SAC and TD3."""
+    rng = np.random.default_rng(SEED)
+    obs_dim, act = (4, None) if name == "DQN" else (3, 1)
+    batch = {
+        "obs": rng.standard_normal((rows, obs_dim)).astype(np.float32),
+        "rewards": rng.standard_normal(rows).astype(np.float32),
+        "dones": (rng.random(rows) < 0.05).astype(np.float32),
+        "discounts": np.full(rows, 0.99 ** 3, np.float32),
+        "next_obs": rng.standard_normal((rows, obs_dim)).astype(np.float32),
+        "batch_indexes": rng.permutation(50_000)[:rows].astype(np.int64),
+        "item_epochs": np.zeros(rows, np.int64)}
+    batch["actions"] = (rng.integers(0, 2, rows).astype(np.int32)
+                        if act is None else
+                        rng.uniform(-2, 2, (rows, act)).astype(np.float32))
+    return batch
+
+
+def rel_norm_error(torch, got, want):
+    """|got - want| / |want| over every tensor of two state dicts (on any
+    device) taken as one vector. Taken tensor by tensor, a bias that
+    starts at 0 would carry after one Adam step the sign of a grad
+    element near 0, which the card and the CPU may round apart."""
+    diff = torch.cat([(got[k].double().cpu() - v.double().cpu()).reshape(-1)
+                      for k, v in want.items()])
+    ref = torch.cat([v.double().cpu().reshape(-1) for v in want.values()])
+    return (diff.norm() / ref.norm()).item()
+
+
+def offpolicy_learners(torch, np, kind, smi):
+    """(1): DQN's, SAC's and TD3's learners at full width on the card
+    against the CPU (and an f64 CPU learner) from the same weights and
+    the same noise on one batch: the loss (1e-5 relative), the grads
+    (GRAD_RTOL or GRAD_F64_RTOL), then one update and the target step
+    (DQN's hard sync, the others' polyak): its total_loss at 1e-5
+    relative, params and targets each at GRAD_RTOL relative norm
+    (rel_norm_error)."""
+    from rllib_learning_sweep import (dqn_cartpole_config,
+                                      sac_pendulum_config,
+                                      td3_pendulum_config)
+
+    from ray_tpu_torch.rllib import DQNConfig, SACConfig, TD3Config
+    from ray_tpu_torch.rllib.algorithms.dqn.dqn import (DQNLearner,
+                                                        DuelingQMLPModule)
+    from ray_tpu_torch.rllib.algorithms.sac.sac import (
+        SACLearner, SquashedGaussianModule)
+    from ray_tpu_torch.rllib.algorithms.td3.td3 import (DeterministicModule,
+                                                        TD3Learner)
+    cases = (
+        ("DQN", DQNLearner, dqn_cartpole_config(DQNConfig, SEED),
+         lambda: DuelingQMLPModule(4, 2, (64, 64)), 32, 0),
+        ("SAC", SACLearner, sac_pendulum_config(SACConfig, SEED),
+         lambda: SquashedGaussianModule(3, 1, [-2.0], [2.0], (128, 128)),
+         256, 2),
+        ("TD3", TD3Learner, td3_pendulum_config(TD3Config, SEED),
+         lambda: DeterministicModule(3, 1, [-2.0], [2.0], (128, 128)),
+         100, 1))
+    rng = np.random.default_rng(SEED + 2)
+    for name, cls, config, make, rows, draws in cases:
+        batch = offpolicy_batch(np, name, rows)
+        noise = [torch.from_numpy(rng.standard_normal((rows, 1)).astype(
+            np.float32)) for _ in range(draws)]
+        learners = {}
+        for which, device in (("card", "cuda"), ("CPU", "cpu"),
+                              ("f64", "cpu")):
+            learner = cls(make(), config.copy().learners(device=device))
+            learner.build(SEED)
+            if which == "f64":
+                learner.module.double()
+                learner._target.double()
+            learners[which] = learner
+        if not all(p.is_cuda for p in learners["card"].module.parameters()):
+            raise AssertionError(f"{name}: the learner is not on the card")
+        out = {}
+        for which, learner in learners.items():
+            dev = {k: torch.from_numpy(v).to(learner.device)
+                   for k, v in batch.items()}
+            extra = learner.extra_inputs()
+            if "policy_gate" in extra:
+                extra["policy_gate"] = 1.0   # the actor's term too
+            args = ()
+            if draws:
+                on_dev = [x.to(learner.device) for x in noise]
+                args = (tuple(on_dev) if draws == 2 else on_dev[0],)
+            loss, _ = learner.compute_loss(dev, extra, *args)
+            grads = torch.autograd.grad(loss, list(
+                learner.module.parameters()))
+            out[which] = (loss.item(), [g.cpu() for g in grads])
+        (loss_c, grads_c), (loss_h, grads_h) = out["card"], out["CPU"]
+        loss_err = abs(loss_c - loss_h) / abs(loss_h)
+        print(f"  {name} learner on a batch of {rows}: loss card "
+              f"{loss_c:.7f} CPU {loss_h:.7f} (rel {loss_err:.2e})",
+              flush=True)
+        if not loss_err < 1e-5:
+            raise AssertionError(f"{name} loss card {loss_c} vs CPU {loss_h}")
+        check_grads(learners["CPU"], grads_c, grads_h, out["f64"][1])
+        # one update from the same state and noise, then the target step
+        stats = {}
+        for which in ("card", "CPU"):
+            learner = learners[which]
+            if draws:
+                on_dev = [x.to(learner.device) for x in noise]
+                fixed = tuple(on_dev) if draws == 2 else on_dev[0]
+                learner.draw_noise = lambda b, g, fixed=fixed: fixed
+            stats[which] = learner.update(batch, None, 1, seed=SEED)
+            if name == "DQN":
+                learner.additional_update(update_target=True)
+            else:
+                learner.additional_update(polyak=True)
+        card, host = learners["card"], learners["CPU"]
+        err = rel_norm_error(torch, card.module.state_dict(),
+                             host.module.state_dict())
+        target_err = rel_norm_error(torch, card._target.state_dict(),
+                                    host._target.state_dict())
+        total = {w: st["total_loss"] for w, st in stats.items()}
+        total_err = abs(total["card"] - total["CPU"]) / abs(total["CPU"])
+        print(f"  {name}: one update, total_loss card {total['card']:.7f} "
+              f"CPU {total['CPU']:.7f} (rel {total_err:.2e}); params' "
+              f"relative norm error {err:.2e}, the targets' "
+              f"{target_err:.2e}; {kind}; {smi}", flush=True)
+        if not (total_err < 1e-5 and err < GRAD_RTOL
+                and target_err < GRAD_RTOL):
+            raise AssertionError(f"{name} after one update, card vs CPU: "
+                                 f"total_loss {total_err}, params {err}, "
+                                 f"targets {target_err}")
+
+
+def timed_updates(algo):
+    """Wraps the algorithm's LearnerGroup.update to record each call's
+    seconds (the update ends in its one blocking copy of the stats, so
+    its host time is the device's) and whether its batch's columns were
+    CUDA tensors; returns the two lists."""
+    seconds, on_card = [], []
+    update = algo.learner_group.update
+
+    def timed(batch, *a, **kw):
+        on_card.append(all(getattr(v, "is_cuda", False)
+                           for v in batch.values()))
+        t0 = time.perf_counter()
+        out = update(batch, *a, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return out
+    algo.learner_group.update = timed
+    return seconds, on_card
+
+
+def learner_on_card(algo):
+    return all(p.is_cuda for p in
+               algo.learner_group._local.module.parameters())
+
+
+def run_dqn_cartpole(torch, np, kind, smi):
+    """(2): DQN CartPole at tests/test_rllib_offpolicy.py's learning
+    config (rllib_learning_sweep.dqn_cartpole_config) at SEED, the
+    learner local on the card: episode_reward_mean >= 150 within 1,000
+    iterations."""
+    from rllib_learning_sweep import ALGOS, dqn_cartpole_config
+
+    from ray_tpu_torch.rllib import DQNConfig
+    _, _, bar, iters = ALGOS["dqn"]
+    torch.cuda.reset_peak_memory_stats()
+    x0 = sentinel_series(XFER)
+    algo = dqn_cartpole_config(DQNConfig, SEED).build()
+    try:
+        seconds, _ = timed_updates(algo)
+        best, iterations = float("-inf"), 0
+        t0 = time.perf_counter()
+        while iterations < iters and best < bar:
+            erm = algo.train()["episode_reward_mean"]
+            if erm == erm:
+                best = max(best, erm)
+            iterations += 1
+        wall = time.perf_counter() - t0
+        on_card = learner_on_card(algo)
+        steps = algo._timesteps_total
+    finally:
+        algo.stop()
+    forced = region_bytes("learner.update", x0) / max(len(seconds), 1)
+    print(f"  DQN CartPole seed {SEED}: best episode_reward_mean "
+          f"{best:.2f} in {iterations} iterations ({wall:.2f} s), env steps "
+          f"{steps} ({steps / wall:.1f}/s), {len(seconds)} updates "
+          f"({len(seconds) / wall:.1f}/s; median "
+          f"{np.median(seconds) * 1e3:.3f} ms, first "
+          f"{seconds[0] * 1e3:.2f} ms), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.2f} MiB, bytes "
+          f"forced an update under learner.update {forced:g} (predicted "
+          f"{FORCED_BYTES['DQN']}); learner on the card: {on_card}; {kind}; "
+          f"{smi}", flush=True)
+    if not on_card:
+        raise AssertionError("the DQN learner is not on the card")
+    if best < bar:
+        raise AssertionError(f"DQN CartPole reached {best} < {bar} within "
+                             f"{iters} iterations")
+    if forced != FORCED_BYTES["DQN"]:
+        raise AssertionError(f"DQN update forced {forced} bytes, predicted "
+                             f"{FORCED_BYTES['DQN']}")
+
+
+def warm_up(algo):
+    """Iterations until the replay buffer has seen the steps learning
+    waits for; returns their count."""
+    n = 0
+    while algo.replay_buffer.num_added < \
+            algo.config.num_steps_sampled_before_learning_starts:
+        algo.train()
+        n += 1
+    return n
+
+
+def run_dqn_prioritized(torch, np, kind, smi):
+    """(3): the same config with prioritized replay for PRIORITIZED_ITERS
+    iterations after learning starts: the sampled transitions'
+    priorities move off their max-priority start."""
+    from rllib_learning_sweep import dqn_cartpole_config
+
+    from ray_tpu_torch.rllib import DQNConfig
+    algo = dqn_cartpole_config(DQNConfig, SEED).training(
+        prioritized_replay=True).build()
+    try:
+        warm = warm_up(algo)
+        seconds, _ = timed_updates(algo)
+        t0 = time.perf_counter()
+        for _ in range(PRIORITIZED_ITERS):
+            result = algo.train()
+        wall = time.perf_counter() - t0
+        buf = algo.replay_buffer
+        tree = buf._tree.get(np.arange(len(buf)))
+        on_card = learner_on_card(algo)
+    finally:
+        algo.stop()
+    distinct = np.unique(np.round(tree, 6)).size
+    print(f"  DQN prioritized: {warm} iterations to learning start, then "
+          f"{PRIORITIZED_ITERS} in {wall:.2f} s ({len(seconds)} updates, "
+          f"median {np.median(seconds) * 1e3:.3f} ms); {distinct} distinct "
+          f"priorities over {len(buf)} transitions (max priority "
+          f"{buf._max_priority:.4f}); last stats "
+          f"{json.dumps(result['learner'])}; learner on the card: "
+          f"{on_card}; {kind}; {smi}", flush=True)
+    if not on_card:
+        raise AssertionError("the prioritized DQN learner is not on the card")
+    if distinct < 2:
+        raise AssertionError("priorities did not move off their start")
+
+
+def run_continuous(torch, np, kind, smi):
+    """(4): SAC, TD3 and DDPG on Pendulum-v1 (Pendulum, registered here)
+    at the JAX package's learning tests' settings
+    (rllib_learning_sweep.sac_pendulum_config, td3_pendulum_config), the
+    learner local on the card: CONTINUOUS_ITERS iterations timed after
+    learning starts."""
+    from rllib_learning_sweep import sac_pendulum_config, td3_pendulum_config
+
+    from ray_tpu_torch.rllib import DDPGConfig, SACConfig, TD3Config
+    for name, make, config_cls in (
+            ("SAC", sac_pendulum_config, SACConfig),
+            ("TD3", td3_pendulum_config, TD3Config),
+            ("DDPG", td3_pendulum_config, DDPGConfig)):
+        torch.cuda.reset_peak_memory_stats()
+        algo = make(config_cls, SEED).build()
+        try:
+            warm = warm_up(algo)
+            seconds, _ = timed_updates(algo)
+            x0 = sentinel_series(XFER)
+            results = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CONTINUOUS_ITERS[name]):
+                results.append(algo.train())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            forced = region_bytes("learner.update", x0) / len(seconds)
+            on_card = learner_on_card(algo)
+            runner_devices = {str(p.device) for p in
+                              algo.env_runners._local.module.parameters()}
+            steps = sum(r["num_env_steps_sampled"] for r in results)
+        finally:
+            algo.stop()
+        stats = results[-1]["learner"]
+        print(f"  {name} Pendulum: {warm} iterations to learning start, then "
+              f"{len(results)} in {wall:.2f} s ({wall / len(results) * 1e3:.1f}"
+              f" ms an iteration, {steps / wall:.1f} env steps/s); "
+              f"{len(seconds)} updates ({len(seconds) / wall:.1f}/s, median "
+              f"{np.median(seconds) * 1e3:.3f} ms); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.2f} MiB; bytes "
+              f"forced an update under learner.update {forced:g} (predicted "
+              f"{FORCED_BYTES[name]}); episode_reward_mean "
+              f"{results[-1]['episode_reward_mean']:.2f}; last stats "
+              f"{json.dumps(stats)}; learner on the card: {on_card}, runner "
+              f"on {runner_devices}; {kind}; {smi}", flush=True)
+        if not on_card or runner_devices != {"cpu"}:
+            raise AssertionError(f"{name}: learner on the card {on_card}, "
+                                 f"runner on {runner_devices}")
+        if not all(math.isfinite(v) for r in results
+                   for v in r["learner"].values()):
+            raise AssertionError(f"{name} stats: {stats}")
+        if forced != FORCED_BYTES[name]:
+            raise AssertionError(f"{name} update forced {forced} bytes, "
+                                 f"predicted {FORCED_BYTES[name]}")
+
+
+def run_replay_plane(torch, np, kind, smi):
+    """(5): DQN CartPole through the replay plane: REPLAY_RUNNERS runner
+    actors pushing fragments of REPLAY_FRAGMENT to REPLAY_SHARDS
+    prioritized shards of REPLAY_CAPACITY, the learner thread fed CUDA
+    tensors by the DeviceFeed, for REPLAY_S seconds of algo.train()."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private import goodput
+    from ray_tpu_torch.rllib import DQNConfig
+    from ray_tpu_torch.util import state
+    config = (DQNConfig().environment("CartPole-v1")
+              .env_runners(num_env_runners=REPLAY_RUNNERS,
+                           rollout_fragment_length=REPLAY_FRAGMENT)
+              .training(buffer_size=REPLAY_SHARDS * REPLAY_CAPACITY,
+                        train_batch_size=32, prioritized_replay=True,
+                        num_replay_shards=REPLAY_SHARDS,
+                        replay_shard_capacity=REPLAY_CAPACITY)
+              .debugging(seed=SEED))
+    algo = config.build()
+    try:
+        seconds, on_card = timed_updates(algo)
+        results = []
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < REPLAY_S:
+            results.append(algo.train())
+        wall = time.perf_counter() - t0
+        last = results[-1]
+        feed_device = str(algo._replay_feed.device)
+        shards = algo._replay_group.shard_stats()
+        listed = state.replay_shards()
+        buckets = goodput.ledger("dqn").totals()
+        states = ray_tpu_torch.get([a.torch_state.remote()
+                                    for a in algo.env_runners.actors],
+                                   timeout=120)
+        learner_card = learner_on_card(algo)
+        sampled = algo._timesteps_total
+    finally:
+        algo.stop()
+    rep = last["replay"]
+    trained = last["num_env_steps_trained_total"]
+    stall = buckets.get("replay_stall", 0.0) / max(sum(buckets.values()),
+                                                   1e-9)
+    print(f"  replay plane, {REPLAY_RUNNERS} runner actors, {REPLAY_SHARDS} "
+          f"prioritized shards of {REPLAY_CAPACITY}: {len(results)} "
+          f"iterations in {wall:.2f} s; env steps sampled {sampled} "
+          f"({sampled / wall:.1f}/s), trained {trained} "
+          f"({trained / wall:.1f}/s); {len(seconds)} updates (median "
+          f"{np.median(seconds) * 1e3:.3f} ms); batches pulled "
+          f"{rep['batches_pulled']}, priority updates sent "
+          f"{rep['priority_updates_sent']} (dropped "
+          f"{rep['priority_updates_dropped']}), healthy shards "
+          f"{rep['healthy_shards']}; shards' priority-update calls "
+          f"{[s['update_rpcs'] for s in shards]}, sizes "
+          f"{[s['size'] for s in shards]}; util.state.replay_shards: "
+          f"{listed['num_alive']} alive of {listed['num_shards']}; the "
+          f"learner thread's goodput {json.dumps(buckets)} (replay_stall "
+          f"{stall:.1%}); feed {json.dumps(last['device_feed'])} on "
+          f"{feed_device}; learner on the card: {learner_card}; runners "
+          f"{states[0]}; {kind}; {smi}", flush=True)
+    if not (learner_card and feed_device.startswith("cuda") and on_card
+            and all(on_card)):
+        raise AssertionError(f"learner on the card {learner_card}, feed on "
+                             f"{feed_device}, CUDA batches {set(on_card)}")
+    if any(s != {"cuda_initialized": False, "num_threads": 1}
+           for s in states):
+        raise AssertionError(f"runners: {states}")
+    if not (trained > 0 and rep["priority_updates_sent"] > 0
+            and sum(s["update_rpcs"] for s in shards) > 0):
+        raise AssertionError(f"no priority updates reached the shards: "
+                             f"{rep}, {shards}")
+    if rep["healthy_shards"] != REPLAY_SHARDS or \
+            listed["num_alive"] != REPLAY_SHARDS:
+        raise AssertionError(f"shards: {rep}, {listed}")
+
+
+def run_offpolicy(torch, kind, smi):
+    """Phase "offpolicy" (the module docstring's phase 12)."""
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import register_env
+    register_env("Pendulum-v1", Pendulum)
+    offpolicy_learners(torch, np, kind, smi)
+    run_dqn_cartpole(torch, np, kind, smi)
+    run_dqn_prioritized(torch, np, kind, smi)
+    run_continuous(torch, np, kind, smi)
+    root = tempfile.mkdtemp(prefix="chip_smoke_offpolicy_")
+    try:
+        t0 = time.perf_counter()
+        ray_tpu_torch.init(num_cpus=REPLAY_RUNNERS + 2, _session_root=root)
+        print(f"  cluster start {time.perf_counter() - t0:.2f} s", flush=True)
+        run_replay_plane(torch, np, kind, smi)
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # phase "parallel": sequence, expert and pipeline parallelism at

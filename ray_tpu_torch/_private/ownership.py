@@ -94,7 +94,10 @@ class TransitionRing:
     def __init__(self, maxlen: int = 2048):
         self._ring: "collections.deque" = collections.deque(maxlen=maxlen)
         self._seq = itertools.count(1)
-        self._lock = threading.Lock()
+        # reentrant: a garbage collection inside record() can run an
+        # ObjectRef.__del__ whose release records a transition on this
+        # same thread (decr_local -> transition -> record)
+        self._lock = threading.RLock()
         self.anomalies: Dict[str, int] = {}
 
     def record(self, kind: str, key: str, event: str, old: Any,

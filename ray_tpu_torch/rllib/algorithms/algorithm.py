@@ -82,6 +82,15 @@ class EnvRunnerSet:
         ray_tpu_torch.get([a.set_weights.remote(weights)
                            for a in self._actors], timeout=300)
 
+    def set_explore_inputs(self, inputs: Dict[str, float]) -> None:
+        """Broadcast exploration scalars (epsilon schedules etc.)."""
+        if self._local is not None:
+            self._local.set_explore_inputs(inputs)
+            return
+        import ray_tpu_torch
+        ray_tpu_torch.get([a.set_explore_inputs.remote(inputs)
+                           for a in self._actors], timeout=120)
+
     def sample_sync(self, num_timesteps_per_runner: int
                     ) -> List[Dict[str, Any]]:
         """reference execution/rollout_ops.py:21
@@ -183,6 +192,14 @@ class Algorithm:
                 self._episode_returns.append(m["episode_return"])
                 self._episode_lens.append(m["episode_len"])
 
+    def _extra_state(self) -> Dict[str, Any]:
+        """Algorithm-specific driver state to checkpoint (target-sync
+        counters ...); subclasses extend."""
+        return {}
+
+    def _restore_extra_state(self, extra: Dict[str, Any]) -> None:
+        pass
+
     # ---- checkpointing (Trainable contract: save/restore) -----------
     def save(self, checkpoint_dir: str) -> str:
         import os
@@ -192,6 +209,7 @@ class Algorithm:
             "learner": self.learner_group.get_state(),
             "iteration": self._iteration,
             "timesteps_total": self._timesteps_total,
+            "extra": self._extra_state(),
         }
         with open(os.path.join(checkpoint_dir, "algorithm_state.pkl"),
                   "wb") as f:
@@ -207,6 +225,7 @@ class Algorithm:
         self.learner_group.set_state(state["learner"])
         self._iteration = state["iteration"]
         self._timesteps_total = state["timesteps_total"]
+        self._restore_extra_state(state.get("extra", {}))
         self.env_runners.sync_weights(self.learner_group.get_weights())
 
     def stop(self) -> None:

@@ -134,7 +134,10 @@ class ImpalaLearner(Learner):
         grads the ranks average (the JAX package's gang path takes one
         step and reads its stats at once, unlagged)."""
         stats = self._full_batch_step(local_batch)
-        return {k: v.item() for k, v in stats.items()}
+        keys = list(stats)
+        # one forcing point for every stat
+        host = torch.stack([stats[k].detach().double() for k in keys]).cpu()
+        return dict(zip(keys, host.tolist()))
 
     def data_axis_for(self, key: str) -> int:
         # time-major [T, B] sequences: the env/batch axis is 1; the

@@ -44,9 +44,17 @@ def _he_init(layers: nn.ModuleList, gen: torch.Generator,
             layer.bias.zero_()
 
 
-def _mlp_apply(layers: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+def _mlp_apply(layers: nn.ModuleList, x: torch.Tensor,
+               detach: bool = False) -> torch.Tensor:
+    """The JAX package's _mlp_apply: dense layers with tanh between them.
+    With `detach`, the layers' params take no gradient while `x` still
+    does (the JAX package's stop_gradient on a params subtree)."""
     for i, layer in enumerate(layers):
-        x = layer(x)
+        if detach:
+            x = nn.functional.linear(x, layer.weight.detach(),
+                                     layer.bias.detach())
+        else:
+            x = layer(x)
         if i < len(layers) - 1:
             x = torch.tanh(x)
     return x
@@ -149,9 +157,14 @@ def params_from_jax(module: RLModule, jax_params: Dict[str, Any]
                     ) -> Dict[str, torch.Tensor]:
     """The JAX package's params pytree (numpy leaves) -> this module's
     state_dict: dense weights [in, out] become nn.Linear's [out, in],
-    conv kernels HWIO become nn.Conv2d's OIHW."""
+    conv kernels HWIO become nn.Conv2d's OIHW. A group is a list of
+    layers (torso, pi, the dueling adv/val heads, SAC's and TD3's q1/q2)
+    or one array leaf, a param of its own (SAC's log_alpha)."""
     out = {}
     for group, layers in jax_params.items():
+        if not isinstance(layers, (list, tuple)):
+            out[group] = torch.tensor(np.asarray(layers))
+            continue
         for i, layer in enumerate(layers):
             w = np.asarray(layer["w"])
             w = w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.T

@@ -7,8 +7,9 @@ runs the minibatch update around it: autograd, the global grad norm
 (reported before clipping), optax's clip_by_global_norm where the
 config sets grad_clip (scale by max_norm / norm when norm >= max_norm,
 with no epsilon, unlike torch.nn.utils.clip_grad_norm_), and Adam with
-optax.adam's update (torch.optim.Adam, eps 1e-8). additional_update
-handles KL-coeff style schedules.
+optax.adam's update (torch.optim.Adam, eps 1e-8); postprocess_updates
+drops a param group's step where optax's hook would zero its update.
+additional_update handles KL-coeff style schedules and target nets.
 
 The learner's device is the config's learner_device: None is the card,
 and raises where there is none. Weights and state leave the learner as
@@ -68,6 +69,32 @@ def index_matrix(n: int, minibatch_size: int, num_iters: int,
     return np.stack(rows)
 
 
+def sweep_stats(pending: List[Dict[str, torch.Tensor]]) -> Dict[str, Any]:
+    """A sweep's per-minibatch stats -> the reported ones, as the JAX
+    package's Learner._sweep_stats gives them: a scalar stat averages over
+    the minibatches; an array stat (per-sample TD errors and their
+    buffer indexes) keeps the last minibatch's values, in its own dtype.
+    Everything crosses to the host in one f64 block (one forcing point);
+    integer stats are exact there below 2**53."""
+    keys = list(pending[0])
+    scalars = [k for k in keys if pending[0][k].dim() == 0]
+    arrays = [k for k in keys if pending[0][k].dim() > 0]
+    parts = [torch.stack([torch.stack([st[k].double() for k in scalars])
+                          for st in pending]).reshape(-1)] if scalars else []
+    parts += [pending[-1][k].double().reshape(-1) for k in arrays]
+    host = torch.cat(parts).cpu().numpy()
+    n = len(pending) * len(scalars)
+    means = host[:n].reshape(len(pending), len(scalars)).mean(axis=0)
+    out: Dict[str, Any] = {k: float(v) for k, v in zip(scalars, means)}
+    for k in arrays:
+        last = pending[-1][k]
+        size = last.numel()
+        np_dtype = torch.empty(0, dtype=last.dtype).numpy().dtype
+        out[k] = host[n:n + size].reshape(tuple(last.shape)).astype(np_dtype)
+        n += size
+    return out
+
+
 class Learner:
     def __init__(self, module: RLModule, config):
         # the learner's own copy: it moves to the learner's device, while
@@ -116,7 +143,7 @@ class Learner:
     def update_distributed(self, local_batch: Dict[str, np.ndarray],
                            minibatch_size: Optional[int] = None,
                            num_iters: int = 1,
-                           seed: int = 0) -> Dict[str, float]:
+                           seed: int = 0) -> Dict[str, Any]:
         """Minibatch SGD on this rank's shard: every rank runs the same
         number of steps (collectives wedge otherwise); each step's global
         minibatch is the union of the ranks' local ones."""
@@ -136,8 +163,18 @@ class Learner:
         return {}
 
     def extra_inputs(self) -> Dict[str, Any]:
-        """Scalars passed to the loss (kl coeff etc.)."""
+        """Inputs passed to the loss (kl coeff, target nets etc.), read
+        once an update."""
         return {}
+
+    def postprocess_updates(self, extra: Dict[str, Any]) -> Tuple[str, ...]:
+        """The JAX package's hook between optimizer.update and
+        apply_updates (TD3 zeroes the actor's update on the steps its
+        policy delay gates). Here it names the module's top-level param
+        groups whose update this step drops: step() advances every Adam
+        moment, as optax's update does, and then those params are put
+        back. Default: none."""
+        return ()
 
     # ---- one step ---------------------------------------------------
     def _step(self, mb: Dict[str, torch.Tensor], extra: Dict[str, Any]
@@ -156,7 +193,14 @@ class Learner:
                      for g in grads]
         for p, g in zip(params, grads):
             p.grad = g
+        held = self.postprocess_updates(extra)
+        kept = [(p, p.detach().clone())
+                for name, p in self.module.named_parameters()
+                if name.split(".", 1)[0] in held] if held else []
         self._optimizer.step()
+        with torch.no_grad():
+            for p, before in kept:
+                p.copy_(before)
         out = {k: v.detach() for k, v in stats.items()}
         out["total_loss"] = loss.detach()
         out["grad_norm"] = g_norm
@@ -185,12 +229,12 @@ class Learner:
     def update(self, batch: Dict[str, Any],
                minibatch_size: Optional[int] = None,
                num_iters: int = 1,
-               seed: int = 0) -> Dict[str, float]:
+               seed: int = 0) -> Dict[str, Any]:
         """Minibatch SGD over the batch (reference Learner.update /
         TorchLearner._update loop): the batch crosses to the device once
         (numpy columns, or tensors already on the device), each minibatch
         is gathered there from an index tensor, and the stats are read
-        once, at the end of the sweep."""
+        once, at the end of the sweep (sweep_stats)."""
         from ray_tpu_torch._private import spans as _spans
         from ray_tpu_torch.util import cuda_sentinel
         with _spans.span("learner.update", num_iters=num_iters), \
@@ -207,12 +251,7 @@ class Learner:
                     pending.append(self._step(
                         {k: v.index_select(0, rows)
                          for k, v in dev_batch.items()}, extra))
-            keys = list(pending[0])
-            host = torch.stack([torch.stack([st[k].float() for k in keys])
-                                for st in pending]).cpu().numpy()
-            # scalars average over the sweep's minibatches
-            return {k: float(np.mean(host[:, i]))
-                    for i, k in enumerate(keys)}
+            return sweep_stats(pending)
 
     # ---- weights (CPU numpy) ----------------------------------------
     def get_weights(self) -> Dict[str, np.ndarray]:

@@ -260,9 +260,17 @@ class LearnerGroup:
         refs = [a.update.remote(batch, minibatch_size, num_iters, seed)
                 for a in self._actors]
         stats = ray_tpu_torch.get(refs, timeout=600)
-        # each rank's stats are means over its shard; equal shards make
-        # their mean the global one (grad_norm is the same on every rank)
-        return {k: float(np.mean([s[k] for s in stats])) for k in stats[0]}
+        # each rank's scalar stats are means over its shard; equal shards
+        # make their mean the global one (grad_norm is the same on every
+        # rank); array stats (per-sample TD errors and their batch
+        # indexes) concatenate in rank order, each rank's shard in turn
+        out: Dict[str, Any] = {}
+        for k in stats[0]:
+            if getattr(stats[0][k], "ndim", 0):
+                out[k] = np.concatenate([np.asarray(s[k]) for s in stats])
+            else:
+                out[k] = float(np.mean([s[k] for s in stats]))
+        return out
 
     def additional_update(self, **kwargs) -> Dict[str, Any]:
         if self._local is not None:

@@ -57,6 +57,10 @@ class SingleAgentEnvRunner:
         self._gen = torch.Generator().manual_seed(
             (seed if seed is not None else 0) * 10007 + worker_index)
         self._has_weights = False
+        # exploration scalars (epsilon, noise scale) for the forward, as
+        # 0-d f32 tensors: the reference's exploration objects own this
+        # state (rllib/utils/exploration/epsilon_greedy.py)
+        self._explore_inputs: Dict[str, torch.Tensor] = {}
 
         base_seed = None if seed is None else seed + worker_index * 1000
         self._obs, _ = self.env.reset(base_seed)
@@ -69,12 +73,18 @@ class SingleAgentEnvRunner:
     def _forward_explore(self, obs) -> Tuple[np.ndarray, np.ndarray,
                                              np.ndarray]:
         """Batched stochastic forward -> (actions, logp, vf_preds) as
-        numpy rows aligned with the vector lanes; actions are int32, as
-        the JAX package's runner samples them."""
+        numpy rows aligned with the vector lanes. Discrete actions are
+        int32, as the JAX package's runner samples them; a Box space's
+        stay float. The exploration inputs (epsilon etc.) ride in the
+        batch."""
         out = self.module.forward_exploration(
-            {"obs": torch.from_numpy(np.asarray(obs))}, self._gen)
-        return (out["actions"].numpy().astype(np.int32),
-                out["action_logp"].numpy(), out["vf_preds"].numpy())
+            {"obs": torch.from_numpy(np.asarray(obs)),
+             **self._explore_inputs}, self._gen)
+        actions = out["actions"].numpy()
+        if not out["actions"].is_floating_point():
+            actions = actions.astype(np.int32)
+        return (actions, out["action_logp"].numpy(),
+                out["vf_preds"].numpy())
 
     @torch.no_grad()
     def _forward_value(self, obs) -> np.ndarray:
@@ -100,6 +110,12 @@ class SingleAgentEnvRunner:
     def get_weights(self) -> Dict[str, np.ndarray]:
         return {k: v.numpy().copy()
                 for k, v in self.module.state_dict().items()}
+
+    def set_explore_inputs(self, inputs: Dict[str, float]) -> None:
+        """Update exploration scalars (e.g. {"epsilon": 0.1})."""
+        self._explore_inputs = {
+            k: torch.tensor(v, dtype=torch.float32)
+            for k, v in inputs.items()}
 
     # ---- sampling ---------------------------------------------------
     def sample(self, num_timesteps: int) -> Dict[str, Any]:
@@ -182,6 +198,48 @@ class SingleAgentEnvRunner:
         batch["episode_metrics"] = metrics
         batch["worker_index"] = self.worker_index
         return batch
+
+    # ---- replay-plane push path (APEX pattern) ----------------------
+    def set_replay_writer(self, spec: Optional[Dict[str, Any]]) -> None:
+        """Install (or clear, with None) the replay push client. The
+        driver ships `spec` after spawning shards and again after every
+        reshard: {"shards": [(shard_id, handle)], "max_inflight_per_shard",
+        "gamma", "n_step"} — shard ActorHandles are picklable, so the
+        spec travels as a plain actor-call argument."""
+        if spec is None:
+            self._replay_writer = None
+            return
+        from ray_tpu_torch.rllib.utils.replay import ReplayWriter
+        self._replay_writer = ReplayWriter(
+            spec["shards"],
+            max_inflight_per_shard=spec.get("max_inflight_per_shard", 4))
+        self._replay_gamma = spec.get("gamma", self.gamma)
+        self._replay_n_step = spec.get("n_step", 1)
+        self._replay_seq = getattr(self, "_replay_seq", 0)
+
+    def sample_to_replay(self, num_timesteps: int) -> Dict[str, Any]:
+        """Roll out and push the transitions straight to the replay
+        shards; only lightweight metadata returns to the driver (the
+        fragment itself rides the scatter-put envelope to its shard,
+        never back through the driver)."""
+        writer = getattr(self, "_replay_writer", None)
+        assert writer is not None, "set_replay_writer before sampling"
+        # late import: dqn imports algorithm imports this module
+        from ray_tpu_torch.rllib.algorithms.dqn.dqn import \
+            fragment_to_transitions
+        fragment = self.sample(num_timesteps)
+        trans = fragment_to_transitions(
+            fragment, self._replay_gamma, n_step=self._replay_n_step)
+        self._replay_seq += 1
+        shard = writer.push(
+            trans, route_key=f"{self.worker_index}:{self._replay_seq}")
+        return {
+            "steps": int(len(trans["rewards"])),
+            "episode_metrics": fragment.get("episode_metrics", []),
+            "worker_index": self.worker_index,
+            "pushed_to_shard": shard,
+            "writer": writer.stats(),
+        }
 
     def stop(self) -> None:
         self.env.close()

@@ -73,6 +73,13 @@ class StagedBatch:
         return sum(s.numel() * s.element_size()
                    for s in self.segments.values())
 
+    def as_dict(self) -> Dict[str, np.ndarray]:
+        """Host-side column views into the staging segments, as numpy
+        (valid until release()): the path with no local learner ships
+        them through the object store."""
+        return {k: self.segments[dt].numpy()[off:off + n].reshape(shape)
+                for k, (dt, off, n, shape) in self.layout.items()}
+
     def release(self) -> None:
         """Hand the staging slot back to its HostStage for reuse. Call
         only when the segments' contents are no longer referenced (the
@@ -199,8 +206,12 @@ class DeviceFeed:
     """
 
     def __init__(self, host_queue: "queue.Queue", device,
-                 stop_event: Optional[threading.Event] = None):
+                 stop_event: Optional[threading.Event] = None,
+                 stall_bucket: str = "feed_stall"):
         self._host = host_queue
+        # goodput bucket the consumer's blocked get() time charges to
+        # (replay learners pass "replay_stall")
+        self._stall_bucket = stall_bucket
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
         if self._cuda and self.device.index is None:
@@ -323,7 +334,7 @@ class DeviceFeed:
                 self.wait_s += waited
                 # starvation is badput on the consumer's ledger even
                 # when the get comes back empty
-                goodput.charge("feed_stall", waited)
+                goodput.charge(self._stall_bucket, waited)
                 _sp["empty"] = True
                 raise
             t1 = time.perf_counter()
@@ -336,7 +347,7 @@ class DeviceFeed:
             t2 = time.perf_counter()
         self.wait_s += t2 - t0
         self.xfer_s += t2 - t1
-        goodput.charge("feed_stall", t2 - t0)
+        goodput.charge(self._stall_bucket, t2 - t0)
         self.batches += 1
         return cols, meta
 

@@ -367,9 +367,52 @@ def replay_shards() -> Dict[str, Any]:
     shard's own stats() snapshot (size, added, evicted, priority
     updates, unmatched tickets). CLI: `ray_tpu replay`; dashboard:
     /api/replay."""
-    raise NotImplementedError(
-        "the RLlib replay plane is not ported yet (ROADMAP.md, Queue 1, "
-        "item 3 onward: RLlib)")
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib.utils.replay import REPLAY_NAMESPACE
+
+    records = list_actors(filters={"class_name": "ReplayShardActor"})
+    shards: List[Dict[str, Any]] = []
+    pending = []
+    for rec in records:
+        row: Dict[str, Any] = {
+            "actor_id": rec["actor_id"],
+            "name": rec["name"],
+            "state": rec["state"],
+            "node_id": rec["node_id"],
+            "num_restarts": rec["num_restarts"],
+            "stats": None,
+        }
+        shards.append(row)
+        if rec["state"] != "ALIVE" or not rec["name"]:
+            continue
+        try:
+            h = ray_tpu_torch.get_actor(rec["name"],
+                                        namespace=REPLAY_NAMESPACE)
+            pending.append((row, h.stats.remote()))
+        except Exception:  # noqa: BLE001 - died mid-listing
+            pass
+    if pending:
+        ready, _ = ray_tpu_torch.wait([r for _row, r in pending],
+                                      num_returns=len(pending), timeout=10)
+        ready_set = {r.hex() for r in ready}
+        for row, ref in pending:
+            if ref.hex() in ready_set:
+                try:
+                    # ready refs: local materialize, zero extra RPCs
+                    row["stats"] = ray_tpu_torch.get(  # graftlint: disable=RT002
+                        ref, timeout=10)
+                except Exception:  # noqa: BLE001 - died mid-query
+                    pass
+    live = [s["stats"] for s in shards if s["stats"]]
+    return {
+        "num_shards": len(shards),
+        "num_alive": sum(1 for s in shards if s["state"] == "ALIVE"),
+        "total_size": sum(s["size"] for s in live),
+        "total_added": sum(s["added"] for s in live),
+        "total_unmatched_priority_updates": sum(
+            s["unmatched_priority_updates"] for s in live),
+        "shards": shards,
+    }
 
 
 def chaos_rules() -> Dict[str, Any]:

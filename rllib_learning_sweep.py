@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""CartPole's learning bar over many seeds, on one package.
+"""A learning bar over many seeds, on one package.
 
     python3 rllib_learning_sweep.py --package ray_tpu_torch --device cpu \
         --seeds 0-39
@@ -7,12 +7,19 @@
         --seeds 0-39
     python3 rllib_learning_sweep.py --algo impala --package ray_tpu_torch \
         --device cpu --seeds 0-19
+    python3 rllib_learning_sweep.py --algo sac --package ray_tpu_torch \
+        --device cpu --seeds 0-4
 
-Runs CartPole once a seed, stopping once episode_reward_mean reaches 150:
-PPO at tests/test_rllib.py:114's config (at most 40 iterations), or
-IMPALA (--algo impala) at tests/test_rllib.py:139's (2 runner actors,
-asynchronous, at most 250 iterations; the package's runtime is started
-for it). It runs on the JAX package (ray_tpu) or on the port
+Runs one algorithm once a seed, stopping once episode_reward_mean
+reaches its bar: PPO CartPole at tests/test_rllib.py:114's config (150
+within 40 iterations), IMPALA (--algo impala) at tests/test_rllib.py:139's
+(2 runner actors, asynchronous, 150 within 250 iterations; the package's
+runtime is started for it), DQN (--algo dqn) at
+tests/test_rllib_offpolicy.py's test_dqn_cartpole_learns (150 within
+1,000 iterations), SAC (--algo sac) at tests/test_rllib_sac.py's
+test_sac_pendulum_learns (Pendulum-v1, -300 within 800) and TD3 (--algo
+td3) at tests/test_rllib_pg_td3.py's test_td3_pendulum_learns (-300
+within 900). It runs on the JAX package (ray_tpu) or on the port
 (ray_tpu_torch, its learner on --device: the card unless "cpu" is
 given), importing only that package. Prints a line a seed, then one
 JSON object: the seeds that reached the bar, and each seed's best
@@ -63,16 +70,75 @@ def impala_cartpole_config(ImpalaConfig, seed):
             .debugging(seed=seed))
 
 
-def learn_cartpole(config, inspect=None, iters=ITERS):
-    """Trains `config`'s algorithm until episode_reward_mean reaches BAR,
-    for at most `iters` iterations. Returns the best episode_reward_mean
-    (the first iteration's may be nan), the iterations run, and
-    inspect(algo) taken before the algorithm stops (None without it)."""
+def dqn_cartpole_config(DQNConfig, seed):
+    """tests/test_rllib_offpolicy.py's DQN CartPole learning config with
+    `seed`: the local runner with 8 envs, fragment 4, lr 1e-3, buffer
+    50,000, batch 32, training intensity 8, learning from 1,000 steps, a
+    target sync every 500, epsilon to 0.02 over 5,000 steps, n-step 3."""
+    return (DQNConfig()
+            .environment("CartPole-v1")
+            .env_runners(num_env_runners=0, num_envs_per_env_runner=8,
+                         rollout_fragment_length=4)
+            .training(lr=1e-3, buffer_size=50_000, train_batch_size=32,
+                      training_intensity=8.0,
+                      num_steps_sampled_before_learning_starts=1000,
+                      target_network_update_freq=500,
+                      epsilon_timesteps=5000, final_epsilon=0.02,
+                      n_step=3, gamma=0.99)
+            .debugging(seed=seed))
+
+
+def sac_pendulum_config(SACConfig, seed):
+    """tests/test_rllib_sac.py's SAC Pendulum learning config with
+    `seed`: 4 envs at fragment 8, batch 256, buffer 50,000, (128, 128)."""
+    return (SACConfig()
+            .environment("Pendulum-v1")
+            .env_runners(num_env_runners=0, num_envs_per_env_runner=4,
+                         rollout_fragment_length=8)
+            .training(lr=3e-4, buffer_size=50_000, train_batch_size=256,
+                      num_steps_sampled_before_learning_starts=1000,
+                      gamma=0.99)
+            .rl_module(model_hiddens=(128, 128))
+            .debugging(seed=seed))
+
+
+def td3_pendulum_config(TD3Config, seed):
+    """tests/test_rllib_pg_td3.py's TD3 Pendulum config with `seed`: 4
+    envs at fragment 8, batch 100, buffer 50,000, (128, 128)."""
+    return (TD3Config()
+            .environment("Pendulum-v1")
+            .env_runners(num_env_runners=0, num_envs_per_env_runner=4,
+                         rollout_fragment_length=8)
+            .training(lr=1e-3, buffer_size=50_000, train_batch_size=100,
+                      num_steps_sampled_before_learning_starts=1000,
+                      exploration_noise=0.1, gamma=0.99)
+            .rl_module(model_hiddens=(128, 128))
+            .debugging(seed=seed))
+
+
+# --algo -> (config maker, its config class's name, bar, iterations)
+ALGOS = {
+    "ppo": (cartpole_config, "PPOConfig", BAR, ITERS),
+    "impala": (impala_cartpole_config, "ImpalaConfig", BAR, IMPALA_ITERS),
+    "dqn": (dqn_cartpole_config, "DQNConfig", BAR, 1000),
+    "sac": (sac_pendulum_config, "SACConfig", -300.0, 800),
+    "td3": (td3_pendulum_config, "TD3Config", -300.0, 900),
+}
+
+
+def learn(config, bar, iters, inspect=None):
+    """Trains `config`'s algorithm until episode_reward_mean reaches
+    `bar`, for at most `iters` iterations. Returns the best
+    episode_reward_mean (-inf until an episode has ended), the iterations
+    run, and inspect(algo) taken before the algorithm stops (None without
+    it)."""
     algo = config.build()
     try:
-        best, iterations = 0.0, 0
-        while iterations < iters and best < BAR:
-            best = max(best, algo.train()["episode_reward_mean"])
+        best, iterations = float("-inf"), 0
+        while iterations < iters and best < bar:
+            erm = algo.train()["episode_reward_mean"]
+            if erm == erm:  # not nan
+                best = max(best, erm)
             iterations += 1
         seen = inspect(algo) if inspect else None
     finally:
@@ -80,9 +146,14 @@ def learn_cartpole(config, inspect=None, iters=ITERS):
     return best, iterations, seen
 
 
+def learn_cartpole(config, inspect=None, iters=ITERS):
+    """learn() to CartPole's BAR."""
+    return learn(config, BAR, iters, inspect)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--algo", choices=("ppo", "impala"), default="ppo")
+    ap.add_argument("--algo", choices=tuple(ALGOS), default="ppo")
     ap.add_argument("--package", choices=("ray_tpu", "ray_tpu_torch"),
                     required=True)
     ap.add_argument("--device", default=None,
@@ -92,30 +163,28 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     package = importlib.import_module(args.package)
     rllib = importlib.import_module(args.package + ".rllib")
+    make, config_name, bar, iters = ALGOS[args.algo]
     if args.algo == "impala":
-        make, iters = impala_cartpole_config, IMPALA_ITERS
-        algo_config = rllib.ImpalaConfig
         package.init(num_cpus=3)
-    else:
-        make, iters = cartpole_config, ITERS
-        algo_config = rllib.PPOConfig
     runs = {}
     try:
         for seed in args.seeds:
-            config = make(algo_config, seed)
+            config = make(getattr(rllib, config_name), seed)
             if args.package == "ray_tpu_torch":
                 config.learners(device=args.device)
             t0 = time.perf_counter()
-            best, iterations, _ = learn_cartpole(config, iters=iters)
-            runs[seed] = {"best": best, "iterations": iterations}
+            best, iterations, _ = learn(config, bar, iters)
+            runs[seed] = {"best": best, "iterations": iterations,
+                          "s": time.perf_counter() - t0}
             print(f"seed {seed}: best {best:.2f} in {iterations} iterations "
-                  f"({time.perf_counter() - t0:.2f} s)", flush=True)
+                  f"({runs[seed]['s']:.2f} s)", flush=True)
     finally:
         if args.algo == "impala":
             package.shutdown()
-    reached = [s for s, r in runs.items() if r["best"] >= BAR]
+    reached = [s for s, r in runs.items() if r["best"] >= bar]
     print(json.dumps({"algo": args.algo, "package": args.package,
-                      "device": args.device, "reached": reached,
+                      "device": args.device, "bar": bar,
+                      "iterations": iters, "reached": reached,
                       "of": len(runs), "runs": runs}))
     return 0
 

@@ -137,25 +137,31 @@ def test_learner_gang_claims_cards_by_local_rank(monkeypatch):
         _claim_gpus([1])
 
 
-RLLIB_UNPORTED = ["DQN", "SAC", "TD3", "DDPG", "CQL", "MARWIL", "BC", "ES",
-                  "PG", "A2C", "SimpleQ"]
+RLLIB_UNPORTED = ["CQL", "MARWIL", "BC", "ES", "PG", "A2C"]
 
 
 @pytest.mark.parametrize("name", RLLIB_UNPORTED)
 def test_rllib_unported_algorithms_raise_naming_roadmap(name):
     from ray_tpu_torch.rllib import get_algorithm_class, registered_algorithms
-    assert registered_algorithms() == ("APPO", "IMPALA", "PPO")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert registered_algorithms() == ("APPO", "DDPG", "DQN", "IMPALA", "PPO",
+                                       "SAC", "SIMPLEQ", "TD3")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
         get_algorithm_class(name)
 
 
-@pytest.mark.parametrize("name", ["IMPALA", "APPO"])
+# name -> the module under ray_tpu_torch.rllib.algorithms that defines it
+RLLIB_PORTED = {"IMPALA": "impala.impala", "APPO": "appo.appo",
+                "DQN": "dqn.dqn", "SAC": "sac.sac", "TD3": "td3.td3",
+                "DDPG": "ddpg.ddpg", "SimpleQ": "dqn.simple_q"}
+
+
+@pytest.mark.parametrize("name", list(RLLIB_PORTED))
 def test_rllib_ported_algorithms_resolve(name):
     from ray_tpu_torch.rllib import get_algorithm_class
     algo, config = get_algorithm_class(name.lower(), return_config=True)
     assert config.algo_class is algo
     assert algo.__module__ == \
-        f"ray_tpu_torch.rllib.algorithms.{name.lower()}.{name.lower()}"
+        f"ray_tpu_torch.rllib.algorithms.{RLLIB_PORTED[name]}"
 
 
 def test_rllib_unported_paths_raise_naming_roadmap():

@@ -68,15 +68,37 @@ VERBATIM = [
     "rllib/env/cartpole.py", "rllib/env/minipong.py",
     "rllib/env/multi_agent.py", "rllib/env/spaces.py",
     "rllib/env/vector.py", "rllib/env/wrappers.py", "rllib/utils/__init__.py",
-    "rllib/utils/postprocessing.py",
+    "rllib/utils/postprocessing.py", "rllib/utils/schedules.py",
+    "rllib/utils/replay_buffers.py", "rllib/utils/replay/__init__.py",
+    "rllib/utils/replay/shard.py", "rllib/utils/replay/writer.py",
+    "rllib/algorithms/dqn/__init__.py", "rllib/algorithms/dqn/simple_q.py",
+    "rllib/algorithms/sac/__init__.py", "rllib/algorithms/td3/__init__.py",
+    "rllib/algorithms/ddpg/__init__.py", "rllib/algorithms/ddpg/ddpg.py",
 ]
+
+# the lines a copy repairs (reference text -> the port's), each a fault of
+# the reference that the port fixes in its copy only: the transition
+# ring's lock is reentrant (a garbage collection inside record() can run
+# an ObjectRef.__del__ that records on the same thread)
+REPAIRED = {
+    "_private/ownership.py": [(
+        "        self._lock = threading.Lock()\n",
+        "        # reentrant: a garbage collection inside record() can run an\n"
+        "        # ObjectRef.__del__ whose release records a transition on this\n"
+        "        # same thread (decr_local -> transition -> record)\n"
+        "        self._lock = threading.RLock()\n")],
+}
 
 
 @pytest.mark.parametrize("path", VERBATIM)
 def test_copy_equals_reference_under_the_rename_rule(path):
     ref = (REPO / "ray_tpu" / path).read_text()
     port = (REPO / "ray_tpu_torch" / path).read_text()
-    assert port == (rename(ref) if path.endswith(".py") else ref)
+    want = rename(ref) if path.endswith(".py") else ref
+    for before, after in REPAIRED.get(path, []):
+        assert want.count(before) == 1, f"{path}: {before!r}"
+        want = want.replace(before, after)
+    assert port == want
 
 
 def test_rename_rule_reaches_the_worker_command():
@@ -191,9 +213,31 @@ def test_unported_libraries_raise_naming_roadmap(cluster):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ray_tpu_torch.init("ray://localhost:1")
     from ray_tpu_torch.util import state
-    for call in (state.serve_fleet, state.replay_shards):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        state.serve_fleet()
+
+
+def test_replay_shards_lists_live_shards(cluster):
+    """util.state.replay_shards(): each live ReplayShardActor of a
+    ReplayGroup, with its own stats."""
+    from ray_tpu_torch.rllib.utils.replay import ReplayGroup
+    from ray_tpu_torch.util import state
+    group = ReplayGroup(2, 100, prioritized=True, batch_size=4, seed=0,
+                        name="state_test", shard_num_cpus=0.1)
+    try:
+        handles = dict(group.shard_handles())
+        assert ray_tpu_torch.get([h.ping.remote() for h in handles.values()],
+                                 timeout=120) == ["pong", "pong"]
+        ray_tpu_torch.get(handles[1].push.remote(
+            {"obs": np.arange(6, dtype=np.float32)}), timeout=60)
+        view = state.replay_shards()
+        mine = [s for s in view["shards"]
+                if (s["stats"] or {}).get("group") == "state_test"]
+        assert len(mine) == 2 and all(s["state"] == "ALIVE" for s in mine)
+        assert sorted(s["stats"]["size"] for s in mine) == [0, 6]
+        assert view["total_added"] >= 6
+    finally:
+        group.stop()
 
 
 def test_device_profile_through_the_cluster(cluster):

@@ -564,7 +564,7 @@ def test_train_step_runs_in_its_region(sentinel):
 
 def test_learner_update_stats_read_in_its_region(sentinel):
     """PPO's Learner.update reads its stats once, at the end of the sweep:
-    a [minibatches, keys] f32 block under "learner.update". On the CPU,
+    a [minibatches, keys] f64 block under "learner.update". On the CPU,
     torch's Adam also reads each param's step counter (a CPU scalar,
     never a device one) once a minibatch."""
     from ray_tpu_torch.rllib import DiscreteMLPModule
@@ -589,7 +589,7 @@ def test_learner_update_stats_read_in_its_region(sentinel):
     t0 = time.perf_counter()
     stats = learner.update(batch, minibatch_size=mb, num_iters=iters)
     steps = len(index_matrix(n, mb, iters, 0))
-    block = steps * len(stats) * 4
+    block = steps * len(stats) * 8
     n_params = len(list(learner.module.parameters()))
     assert _delta(before, _series(XFER), label) == \
         block + steps * n_params * 4
