@@ -209,6 +209,36 @@ Phases, each of which raises (and so exits non-zero) on failure:
      update ms, updates/s, env steps/s and peak memory; the learners'
      params are CUDA tensors. The path launches none of the flash
      kernels (launches_by_path "offpolicy", which must be 0).
+ 13. rllib_rest: the rest of RLlib on the card, f32 with TF32 off, at
+     the JAX learning tests' widths and sizes. (1) PG's, A2C's, MARWIL's
+     (beta 1), BC's, CQL's and two-policy PPO's learners on the card
+     against the port's CPU learner (and an f64 one) from the same
+     weights on one batch (1024, 1024, 1000, 2000, 64 and 1024 rows;
+     CQL's candidate draws fixed, numpy from SEED): the loss (1e-5
+     relative), every grad (GRAD_RTOL or GRAD_F64_RTOL, as in 7), then one
+     full-batch update's total_loss (1e-5 relative) and params (GRAD_RTOL
+     relative norm); the worst of each printed. (2) PG CartPole at
+     tests/test_rllib_pg_td3.py's settings (rllib_learning_sweep's
+     pg_cartpole_config) at SEED: 150 within REST_PG_ITERS iterations;
+     the bytes forced an update under "learner.update" equal to
+     REST_PG_FORCED_BYTES. (3) REST_EXPERT_STEPS steps of a hand-coded
+     CartPole balancer recorded through JsonWriter; BC from them 120
+     within REST_BC_ITERS iterations; MARWIL (beta 1) REST_MARWIL_ITERS
+     iterations with mean_imitation_weight > 0; SAC on Pendulum records
+     fragments through offline_data(output=), and CQL trains
+     REST_CQL_ITERS iterations on them, cql_loss finite and moving. (4)
+     ray_tpu_torch.init() and ES at tests/test_rllib_es.py's settings
+     with REST_ES_WORKERS CPU evaluation actors, REST_ES_ITERS
+     iterations: after each, the learner's weights are CUDA tensors equal
+     to theta unflattened. (5) Two-policy PPO on 2-agent CartPole
+     (rllib_learning_sweep.ma_ppo_config) for REST_MA_ITERS iterations:
+     both modules' params move, per-module stats, each lane's logp its
+     own module's. (6) PPO CartPole through a mean-std filter and a
+     clip-reward connector for REST_CONNECTOR_ITERS iterations; the
+     filter's state survives save/restore. Each part prints its update
+     median ms beside the card's name and power limit; every learner is
+     on the card. The path launches none of the flash kernels
+     (launches_by_path "rllib_rest", which must be 0).
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -799,6 +829,16 @@ def main(argv=None) -> int:
                                  f"kernels: {dict(fa.launches)}")
         for name in records:
             records[name]["launches_by_path"]["offpolicy"] = \
+                fa.launches[name]
+
+    with phase("rllib_rest"):
+        fa.reset_launches()
+        run_rllib_rest(torch, kind, smi)
+        if any(fa.launches.values()):
+            raise AssertionError(f"the rllib_rest path launched flash "
+                                 f"kernels: {dict(fa.launches)}")
+        for name in records:
+            records[name]["launches_by_path"]["rllib_rest"] = \
                 fa.launches[name]
 
     # after the runs, so that a spill does not hide what the kernels do
@@ -2355,6 +2395,456 @@ def run_offpolicy(torch, kind, smi):
     finally:
         ray_tpu_torch.shutdown()
         shutil.rmtree(root, ignore_errors=True)
+
+
+# phase "rllib_rest": the rest of RLlib (the module docstring's phase 13)
+REST_PG_ITERS, REST_BC_ITERS = 300, 30
+REST_MARWIL_ITERS, REST_CQL_ITERS = 5, 20
+REST_ES_ITERS, REST_ES_WORKERS = 3, 2
+REST_MA_ITERS, REST_CONNECTOR_ITERS = 5, 3
+REST_EXPERT_STEPS = 4000
+# the bytes a PG update forces to the host: its stats block, one f64 each
+# of policy_loss, vf_loss, entropy, total_loss and grad_norm (one step)
+REST_PG_FORCED_BYTES = 8 * 5
+
+
+def rest_batch(np, kind, rows):
+    """A train batch of the learner's shapes, made with numpy from SEED:
+    CartPole's for PG, A2C, MARWIL and BC (advantages of unit scale, as
+    standardised or normalised ones are), Pendulum's transitions for CQL,
+    and {pol_a, pol_b} halves of CartPole's for two-policy PPO."""
+    rng = np.random.default_rng(SEED + 7)
+    if kind == "CQL":
+        return {
+            "obs": rng.standard_normal((rows, 3)).astype(np.float32),
+            "actions": rng.uniform(-2, 2, (rows, 1)).astype(np.float32),
+            "rewards": rng.standard_normal(rows).astype(np.float32),
+            "dones": (rng.random(rows) < 0.05).astype(np.float32),
+            "discounts": np.full(rows, 0.99, np.float32),
+            "next_obs": rng.standard_normal((rows, 3)).astype(np.float32)}
+
+    def one(n):
+        return {
+            "obs": rng.standard_normal((n, 4)).astype(np.float32),
+            "actions": rng.integers(0, 2, n).astype(np.int32),
+            "advantages": rng.standard_normal(n).astype(np.float32),
+            "value_targets": (3 * rng.standard_normal(n)).astype(np.float32),
+            "action_logp": (-math.log(2) + 0.05 * rng.standard_normal(n)
+                            ).astype(np.float32),
+            "vf_preds": rng.standard_normal(n).astype(np.float32)}
+    if kind == "MA-PPO":
+        return {"pol_a": one(rows // 2), "pol_b": one(rows - rows // 2)}
+    return one(rows)
+
+
+def rest_learner_cases():
+    """(name, learner class, config, module maker, batch rows) at the JAX
+    learning tests' widths: (64, 64) CartPole nets, CQL's (64, 64)
+    squashed gaussian on Pendulum, two (64, 64) PPO policies."""
+    from rllib_learning_sweep import (a2c_cartpole_config,
+                                      ma_ppo_config, pg_cartpole_config)
+
+    from ray_tpu_torch.rllib import (A2CConfig, BCConfig, CQLConfig,
+                                     DiscreteMLPModule, MARWILConfig,
+                                     MultiAgentRLModule, PGConfig, PPOConfig)
+    from ray_tpu_torch.rllib.algorithms.a2c.a2c import A2CLearner
+    from ray_tpu_torch.rllib.algorithms.cql.cql import CQLLearner
+    from ray_tpu_torch.rllib.algorithms.marwil.marwil import MARWILLearner
+    from ray_tpu_torch.rllib.algorithms.pg.pg import PGLearner
+    from ray_tpu_torch.rllib.algorithms.ppo.ppo import MultiAgentPPOLearner
+    from ray_tpu_torch.rllib.algorithms.sac.sac import SquashedGaussianModule
+
+    def mlp():
+        return DiscreteMLPModule(4, 2, (64, 64))
+    offline = dict(lr=1e-3, beta=1.0)
+    return (
+        ("PG", PGLearner, pg_cartpole_config(PGConfig, SEED), mlp, 1024),
+        ("A2C", A2CLearner, a2c_cartpole_config(A2CConfig, SEED), mlp,
+         1024),
+        ("MARWIL", MARWILLearner,
+         MARWILConfig().training(**offline), mlp, 1000),
+        ("BC", MARWILLearner, BCConfig().training(lr=5e-3), mlp, 2000),
+        ("CQL", CQLLearner, CQLConfig(),
+         lambda: SquashedGaussianModule(3, 1, [-2.0], [2.0], (64, 64)), 64),
+        ("MA-PPO", MultiAgentPPOLearner, ma_ppo_config(PPOConfig, SEED),
+         lambda: MultiAgentRLModule({"pol_a": mlp(), "pol_b": mlp()}),
+         1024))
+
+
+def rest_on_device(torch, batch, device, dtype=None):
+    def move(v):
+        t = torch.from_numpy(v).to(device)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() \
+            else t
+    return {k: ({c: move(x) for c, x in v.items()} if isinstance(v, dict)
+                else move(v)) for k, v in batch.items()}
+
+
+def rest_learners(torch, np, kind, smi):
+    """(1): each learner on the card against the port's CPU learner (and
+    an f64 CPU learner) from the same weights on one batch: the loss
+    (1e-5 relative), every grad (GRAD_RTOL relative norm from the CPU's,
+    or GRAD_F64_RTOL from the f64 one's), then one full-batch update: its
+    total_loss (1e-5 relative) and the params (GRAD_RTOL relative norm,
+    rel_norm_error). CQL's draws are fixed, numpy from SEED."""
+    worst = {}
+    for name, cls, config, make, rows in rest_learner_cases():
+        batch = rest_batch(np, name, rows)
+        learners = {}
+        for which, device in (("card", "cuda"), ("CPU", "cpu"),
+                              ("f64", "cpu")):
+            learner = cls(make(), config.copy().learners(device=device))
+            learner.build(SEED)
+            if which == "f64":
+                learner.module.double()
+                if hasattr(learner, "_target"):
+                    learner._target.double()
+            learners[which] = learner
+        if not all(p.is_cuda for p in learners["card"].module.parameters()):
+            raise AssertionError(f"{name}: the learner is not on the card")
+        noise = None
+        if name == "CQL":
+            rng = np.random.default_rng(SEED + 3)
+            n = config.num_actions
+            noise = [rng.standard_normal((rows, 1)),
+                     rng.standard_normal((rows, 1)),
+                     rng.uniform(-2, 2, (n, rows, 1)),
+                     rng.standard_normal((n * rows, 1))]
+            noise = [x.astype(np.float32) for x in noise]
+        out = {}
+        for which, learner in learners.items():
+            dtype = torch.float64 if which == "f64" else None
+            dev = rest_on_device(torch, batch, learner.device, dtype)
+            args = ()
+            if noise is not None:
+                args = (tuple(torch.from_numpy(x).to(learner.device, dtype)
+                              if dtype else
+                              torch.from_numpy(x).to(learner.device)
+                              for x in noise),)
+            loss, _ = learner.compute_loss(dev, learner.extra_inputs(), *args)
+            params = list(learner.module.parameters())
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            out[which] = (loss.item(), [
+                (torch.zeros_like(p) if g is None else g).cpu()
+                for p, g in zip(params, grads)])
+        (loss_c, grads_c), (loss_h, grads_h) = out["card"], out["CPU"]
+        loss_err = abs(loss_c - loss_h) / abs(loss_h)
+        grad_err, bad = 0.0, {}
+        for (pname, _), gc, gh, gx in zip(
+                learners["CPU"].module.named_parameters(), grads_c, grads_h,
+                out["f64"][1]):
+            if not gh.norm() > 0:   # a param the loss does not reach
+                if gc.norm() > 0:
+                    bad[pname] = "nonzero grad on the card"
+                continue
+            e_cpu = ((gc - gh).norm() / gh.norm()).item()
+            e_f64 = ((gc.double() - gx).norm() / gx.norm()).item()
+            grad_err = max(grad_err, min(e_cpu, e_f64))
+            if not (e_cpu < GRAD_RTOL or e_f64 < GRAD_F64_RTOL):
+                bad[pname] = (e_cpu, e_f64)
+        stats = {}
+        for which in ("card", "CPU"):
+            learner = learners[which]
+            if noise is not None:
+                fixed = tuple(torch.from_numpy(x).to(learner.device)
+                              for x in noise)
+                learner.draw_noise = lambda b, g, fixed=fixed: fixed
+            stats[which] = learner.update(batch, None, 1, seed=SEED)
+        card, host = learners["card"], learners["CPU"]
+        param_err = rel_norm_error(torch, card.module.state_dict(),
+                                   host.module.state_dict())
+        total_err = abs(stats["card"]["total_loss"]
+                        - stats["CPU"]["total_loss"]) \
+            / abs(stats["CPU"]["total_loss"])
+        worst[name] = {"loss": loss_err, "grads": grad_err,
+                       "total_loss": total_err, "params": param_err}
+        print(f"  {name} learner, a batch of {rows}: loss card "
+              f"{loss_c:.7f} CPU {loss_h:.7f}; worst relative errors: loss "
+              f"{loss_err:.2e}, grads {grad_err:.2e} (relative norm, from "
+              f"the CPU's or the f64 one's), one update's total_loss "
+              f"{total_err:.2e}, params {param_err:.2e}; {kind}; {smi}",
+              flush=True)
+        if bad or not (loss_err < 1e-5 and total_err < 1e-5
+                       and param_err < GRAD_RTOL):
+            raise AssertionError(f"{name} card vs CPU: {worst[name]}, "
+                                 f"grads {bad}")
+    return worst
+
+
+def rest_pg_cartpole(torch, np, kind, smi):
+    """(2): PG CartPole at tests/test_rllib_pg_td3.py's settings
+    (rllib_learning_sweep.pg_cartpole_config) at SEED, the learner local
+    on the card: episode_reward_mean >= 150 within REST_PG_ITERS."""
+    from rllib_learning_sweep import BAR, pg_cartpole_config
+
+    from ray_tpu_torch.rllib import PGConfig
+    x0 = sentinel_series(XFER)
+    algo = pg_cartpole_config(PGConfig, SEED).build()
+    try:
+        seconds, _ = timed_updates(algo)
+        best, iterations = float("-inf"), 0
+        t0 = time.perf_counter()
+        while iterations < REST_PG_ITERS and best < BAR:
+            erm = algo.train()["episode_reward_mean"]
+            if erm == erm:
+                best = max(best, erm)
+            iterations += 1
+        wall = time.perf_counter() - t0
+        on_card = learner_on_card(algo)
+        steps = algo._timesteps_total
+    finally:
+        algo.stop()
+    forced = region_bytes("learner.update", x0) / max(len(seconds), 1)
+    print(f"  PG CartPole seed {SEED}: best episode_reward_mean {best:.2f} "
+          f"in {iterations} iterations ({wall:.2f} s), env steps {steps}; "
+          f"{len(seconds)} updates (median {np.median(seconds) * 1e3:.3f} "
+          f"ms, first {seconds[0] * 1e3:.2f} ms); bytes forced an update "
+          f"under learner.update {forced:g} (predicted "
+          f"{REST_PG_FORCED_BYTES}); learner on the card: {on_card}; {kind}; "
+          f"{smi}", flush=True)
+    if not on_card:
+        raise AssertionError("the PG learner is not on the card")
+    if best < BAR:
+        raise AssertionError(f"PG CartPole reached {best} < {BAR} within "
+                             f"{REST_PG_ITERS} iterations")
+    if forced != REST_PG_FORCED_BYTES:
+        raise AssertionError(f"PG update forced {forced} bytes, predicted "
+                             f"{REST_PG_FORCED_BYTES}")
+
+
+def rest_offline(torch, np, kind, smi, root):
+    """(3): BC and MARWIL from REST_EXPERT_STEPS steps of the hand-coded
+    balancer (rllib_learning_sweep.record_expert_data, JsonWriter); SAC
+    on Pendulum records fragments through offline_data(output=), and CQL
+    trains on them."""
+    from rllib_learning_sweep import (bc_cartpole_config,
+                                      marwil_cartpole_config,
+                                      record_expert_data)
+
+    from ray_tpu_torch.rllib import (BCConfig, CQLConfig, MARWILConfig,
+                                     SACConfig)
+    from ray_tpu_torch.rllib.offline.json_io import JsonReader
+    data = os.path.join(root, "expert")
+    expert = record_expert_data("ray_tpu_torch", data, REST_EXPERT_STEPS)
+    print(f"  expert data: {REST_EXPERT_STEPS} steps, mean return "
+          f"{expert:.2f}", flush=True)
+    algo = bc_cartpole_config(BCConfig, SEED, data).build()
+    try:
+        seconds, _ = timed_updates(algo)
+        best, iterations = float("-inf"), 0
+        while iterations < REST_BC_ITERS and best < 120.0:
+            erm = algo.train()["episode_reward_mean"]
+            if erm == erm:
+                best = max(best, erm)
+            iterations += 1
+        on_card = learner_on_card(algo)
+    finally:
+        algo.stop()
+    print(f"  BC: best episode_reward_mean {best:.2f} in {iterations} "
+          f"iterations; update median {np.median(seconds) * 1e3:.3f} ms "
+          f"({len(seconds)} updates of 2000 rows, minibatch 256, 2 "
+          f"epochs); learner on the card: {on_card}; {kind}; {smi}",
+          flush=True)
+    if not on_card or best < 120.0:
+        raise AssertionError(f"BC reached {best} < 120 within "
+                             f"{REST_BC_ITERS} iterations (on the card: "
+                             f"{on_card})")
+    algo = marwil_cartpole_config(MARWILConfig, SEED, data).build()
+    try:
+        seconds, _ = timed_updates(algo)
+        results = [algo.train() for _ in range(REST_MARWIL_ITERS)]
+        on_card = learner_on_card(algo)
+    finally:
+        algo.stop()
+    st = results[-1]["learner"]
+    print(f"  MARWIL (beta 1): {REST_MARWIL_ITERS} iterations, last stats "
+          f"{json.dumps(st)}; update median {np.median(seconds) * 1e3:.3f} "
+          f"ms; learner on the card: {on_card}; {kind}; {smi}", flush=True)
+    if not (on_card and st["mean_imitation_weight"] > 0
+            and st["sqd_adv_norm"] != 1.0
+            and all(math.isfinite(v) for v in st.values())):
+        raise AssertionError(f"MARWIL: {st}, on the card {on_card}")
+
+    out = os.path.join(root, "pendulum")
+    rec = (SACConfig().environment("Pendulum-v1")
+           .env_runners(num_envs_per_env_runner=4, rollout_fragment_length=16)
+           .training(train_batch_size=64,
+                     num_steps_sampled_before_learning_starts=64)
+           .offline_data(output=out).debugging(seed=SEED).build())
+    try:
+        for _ in range(3):
+            rec.train()
+    finally:
+        rec.stop()
+    recorded = len(JsonReader(out))
+    algo = (CQLConfig().environment("Pendulum-v1")
+            .training(train_batch_size=64).offline_data(input_=out)
+            .debugging(seed=SEED).build())
+    try:
+        seconds, _ = timed_updates(algo)
+        cql = [algo.train()["learner"]["cql_loss"]
+               for _ in range(REST_CQL_ITERS)]
+        on_card = learner_on_card(algo)
+    finally:
+        algo.stop()
+    print(f"  CQL on {recorded} recorded SAC fragments: cql_loss "
+          f"{['%.4f' % x for x in cql]}; update median "
+          f"{np.median(seconds) * 1e3:.3f} ms; learner on the card: "
+          f"{on_card}; {kind}; {smi}", flush=True)
+    if not (on_card and all(math.isfinite(x) for x in cql)
+            and len(set(cql)) > 1):
+        raise AssertionError(f"CQL: cql_loss {cql}, on the card {on_card}")
+
+
+def rest_es(torch, np, kind, smi):
+    """(4): ES at tests/test_rllib_es.py's settings with REST_ES_WORKERS
+    CPU evaluation actors, REST_ES_ITERS iterations: after each, the
+    learner's weights on the card equal theta unflattened."""
+    from rllib_learning_sweep import es_cartpole_config
+
+    from ray_tpu_torch.rllib import ESConfig
+    algo = es_cartpole_config(ESConfig, SEED).training(
+        num_workers=REST_ES_WORKERS).build()
+    try:
+        walls, steps = [], []
+        for _ in range(REST_ES_ITERS):
+            t0 = time.perf_counter()
+            result = algo.train()
+            walls.append(time.perf_counter() - t0)
+            steps.append(result["num_env_steps_sampled"])
+            params = algo.learner_group._local.module.state_dict()
+            want = algo._order.unflatten(algo._theta)
+            if not all(v.is_cuda for v in params.values()):
+                raise AssertionError("the ES learner is not on the card")
+            if not all(np.array_equal(params[k].cpu().numpy(), v)
+                       for k, v in want.items()):
+                raise AssertionError("the ES learner's weights are not "
+                                     "theta")
+        theta_norm = result["learner"]["theta_norm"]
+    finally:
+        algo.stop()
+    print(f"  ES, {REST_ES_WORKERS} CPU evaluation actors: "
+          f"{REST_ES_ITERS} iterations of {['%.2f' % w for w in walls]} s, "
+          f"env steps evaluated {steps}, theta norm {theta_norm:.4f}; the "
+          f"learner's weights on the card equal theta after each; {kind}; "
+          f"{smi}", flush=True)
+
+
+def rest_multi_agent(torch, np, kind, smi):
+    """(5): two-policy PPO (rllib_learning_sweep.ma_ppo_config) for
+    REST_MA_ITERS iterations: both modules' params move on the card, and
+    a fragment's lanes act through their own modules (each lane's logp
+    is its module's)."""
+    from rllib_learning_sweep import ma_policy, ma_ppo_config
+
+    from ray_tpu_torch.rllib import PPOConfig
+    algo = ma_ppo_config(PPOConfig, SEED).build()
+    try:
+        seconds, _ = timed_updates(algo)
+        w0 = algo.learner_group.get_weights()
+        results = [algo.train() for _ in range(REST_MA_ITERS)]
+        w1 = algo.learner_group.get_weights()
+        on_card = learner_on_card(algo)
+        runner = algo.env_runners._local
+        frag = runner.sample(256)
+        lanes = list(runner._lane_module_ids)
+        agents = [a for env in runner.env.agents_per_env for a in env]
+        mismatch = 0.0
+        for lane, mid in enumerate(lanes):
+            with torch.no_grad():
+                out = runner.module[mid].forward_train(
+                    {"obs": torch.from_numpy(frag["obs"][:, lane])})
+                logp = runner.module[mid].action_dist(
+                    out["action_dist_inputs"]).logp(
+                        torch.from_numpy(frag["actions"][:, lane]))
+            mismatch = max(mismatch, float(np.abs(
+                logp.numpy() - frag["action_logp"][:, lane]).max()))
+    finally:
+        algo.stop()
+    moved = {mid: max(float(np.abs(w1[k] - w0[k]).max())
+                      for k in w0 if k.startswith(mid + "."))
+             for mid in ("pol_a", "pol_b")}
+    st = results[-1]["learner"]
+    per = {k: v for k, v in st.items() if "/" in k}
+    print(f"  two-policy PPO: {REST_MA_ITERS} iterations, "
+          f"episode_reward_mean {results[-1]['episode_reward_mean']:.2f}; "
+          f"per-module stats {json.dumps(per)}; largest param change "
+          f"{moved}; update median {np.median(seconds) * 1e3:.3f} ms; "
+          f"lanes {lanes}; each lane's logp from its module within "
+          f"{mismatch:.1e}; learner on the card: {on_card}; {kind}; {smi}",
+          flush=True)
+    if not (on_card and all(v > 0 for v in moved.values())):
+        raise AssertionError(f"two-policy PPO: moved {moved}, on the card "
+                             f"{on_card}")
+    if lanes != [ma_policy(a) for a in agents] or mismatch > 1e-5 \
+            or frag["module_order"] != ["pol_a", "pol_b"]:
+        raise AssertionError(f"lanes {lanes} for agents {agents}, logp "
+                             f"mismatch {mismatch}")
+
+
+def rest_connectors(torch, np, kind, smi, root):
+    """(6): PPO CartPole (rllib_learning_sweep.cartpole_config) through a
+    mean-std filter and a clip-reward connector for REST_CONNECTOR_ITERS
+    iterations; the filter's state survives save/restore."""
+    from rllib_learning_sweep import cartpole_config
+
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib.connectors import (ClipRewardConnector,
+                                                MeanStdFilterConnector)
+
+    def config(seed):
+        return cartpole_config(PPOConfig, seed).env_runners(
+            env_connectors=[MeanStdFilterConnector(),
+                            ClipRewardConnector(sign=False, bound=0.5)])
+    algo, other = config(SEED).build(), config(SEED + 1).build()
+    try:
+        results = [algo.train() for _ in range(REST_CONNECTOR_ITERS)]
+        path = algo.save(os.path.join(root, "connectors"))
+        other.restore(path)
+        (state,), (restored,) = (algo.env_runners.get_connector_states(),
+                                 other.env_runners.get_connector_states())
+        on_card = learner_on_card(algo)
+    finally:
+        algo.stop()
+        other.stop()
+    same = state[0]["count"] == restored[0]["count"] and all(
+        np.array_equal(state[0][k], restored[0][k]) for k in ("mean", "m2"))
+    print(f"  PPO CartPole through a mean-std filter and a clip-reward "
+          f"connector: {REST_CONNECTOR_ITERS} iterations, last total_loss "
+          f"{results[-1]['learner']['total_loss']:.4f}; the filter has seen "
+          f"{state[0]['count']:g} observations, mean "
+          f"{np.round(state[0]['mean'], 4).tolist()}; restored equal: "
+          f"{same}; learner on the card: {on_card}; {kind}; {smi}",
+          flush=True)
+    if not (same and on_card and state[0]["count"] > 0):
+        raise AssertionError(f"connector state {state} restored as "
+                             f"{restored}; on the card {on_card}")
+
+
+def run_rllib_rest(torch, kind, smi):
+    """Phase "rllib_rest" (the module docstring's phase 13)."""
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import register_env
+    register_env("Pendulum-v1", Pendulum)
+    t0 = time.perf_counter()
+    rest_learners(torch, np, kind, smi)
+    rest_pg_cartpole(torch, np, kind, smi)
+    root = tempfile.mkdtemp(prefix="chip_smoke_rllib_rest_")
+    try:
+        rest_offline(torch, np, kind, smi, root)
+        rest_multi_agent(torch, np, kind, smi)
+        rest_connectors(torch, np, kind, smi, root)
+        ray_tpu_torch.init(num_cpus=REST_ES_WORKERS + 1,
+                           _session_root=os.path.join(root, "session"))
+        try:
+            rest_es(torch, np, kind, smi)
+        finally:
+            ray_tpu_torch.shutdown()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # phase "parallel": sequence, expert and pipeline parallelism at

@@ -8,8 +8,9 @@ env-runner episode metrics into the result; WorkerSet
 foreach (:657) becomes EnvRunnerSet here (local runner when
 num_env_runners=0, CPU actor runners otherwise). The learners run on the
 config's learner_device (the card by default); the runners always run
-on the CPU. Connectors, multi-agent policies and offline output are not
-ported yet: configuring one raises, naming its ROADMAP row.
+on the CPU. With config.output set, every sampled fragment is written
+through a JsonWriter; the env pipeline's state (connectors) is saved and
+restored with the algorithm.
 """
 
 from __future__ import annotations
@@ -27,25 +28,6 @@ from ray_tpu_torch.rllib.core.learner_group import LearnerGroup
 from ray_tpu_torch.rllib.env.base import make_env
 from ray_tpu_torch.rllib.env.env_runner import SingleAgentEnvRunner
 
-_CONNECTORS = ("connector pipelines (env_connectors, action_connectors): "
-               "ROADMAP Queue 1 item 6, 'connectors'")
-_OFFLINE = ("offline input and output (offline_data): ROADMAP Queue 1 "
-            "item 6, 'marwil/BC', and item 8, 'data'")
-# config fields whose paths are not ported yet -> their ROADMAP rows
-_UNPORTED = {
-    "env_connectors": _CONNECTORS, "action_connectors": _CONNECTORS,
-    "policies": "multi-agent policies (multi_agent(policies=...)): "
-                "ROADMAP Queue 1 item 6, 'multi-agent PPO'",
-    "input_": _OFFLINE, "output": _OFFLINE,
-}
-
-
-def _check_ported(config: AlgorithmConfig) -> None:
-    for field, what in _UNPORTED.items():
-        if getattr(config, field):
-            raise NotImplementedError(f"not ported yet: {what}")
-
-
 class EnvRunnerSet:
     """Local or actor-based rollout workers (reference WorkerSet)."""
 
@@ -53,11 +35,18 @@ class EnvRunnerSet:
         self.config = config
         self._local: Optional[SingleAgentEnvRunner] = None
         self._actors: List[Any] = []
+        self._writer = None
+        if config.output:
+            from ray_tpu_torch.rllib.offline.json_io import JsonWriter
+            self._writer = JsonWriter(config.output)
         if config.num_env_runners == 0:
             self._local = SingleAgentEnvRunner(
                 config.env, module, config.env_config,
                 num_envs=config.num_envs_per_env_runner,
-                seed=config.seed, worker_index=0, gamma=config.gamma)
+                seed=config.seed, worker_index=0, gamma=config.gamma,
+                policy_mapping_fn=config.policy_mapping_fn,
+                env_connectors=config.env_connectors,
+                action_connectors=config.action_connectors)
         else:
             import ray_tpu_torch
             runner_cls = ray_tpu_torch.remote(SingleAgentEnvRunner)
@@ -66,7 +55,10 @@ class EnvRunnerSet:
                     config.env, module, config.env_config,
                     num_envs=config.num_envs_per_env_runner,
                     seed=config.seed, worker_index=i + 1,
-                    gamma=config.gamma)
+                    gamma=config.gamma,
+                    policy_mapping_fn=config.policy_mapping_fn,
+                    env_connectors=config.env_connectors,
+                    action_connectors=config.action_connectors)
                 for i in range(config.num_env_runners)
             ]
 
@@ -96,17 +88,41 @@ class EnvRunnerSet:
         """reference execution/rollout_ops.py:21
         synchronous_parallel_sample."""
         if self._local is not None:
-            return [self._local.sample(num_timesteps_per_runner)]
+            frags = [self._local.sample(num_timesteps_per_runner)]
+        else:
+            import ray_tpu_torch
+            frags = ray_tpu_torch.get(
+                [a.sample.remote(num_timesteps_per_runner)
+                 for a in self._actors], timeout=600)
+        if self._writer is not None:
+            for f in frags:
+                self._writer.write(f)
+        return frags
+
+    def get_connector_states(self) -> List[Any]:
+        """Each runner's env-pipeline state, in runner order."""
+        if self._local is not None:
+            return [self._local.get_connector_state()]
         import ray_tpu_torch
-        return ray_tpu_torch.get(
-            [a.sample.remote(num_timesteps_per_runner)
-             for a in self._actors], timeout=600)
+        return ray_tpu_torch.get([a.get_connector_state.remote()
+                                  for a in self._actors], timeout=120)
+
+    def set_connector_states(self, states: List[Any]) -> None:
+        if self._local is not None:
+            self._local.set_connector_state(states[0])
+            return
+        import ray_tpu_torch
+        ray_tpu_torch.get([a.set_connector_state.remote(s)
+                           for a, s in zip(self._actors, states)],
+                          timeout=120)
 
     @property
     def actors(self) -> List[Any]:
         return self._actors
 
     def stop(self) -> None:  # EnvRunnerSet
+        if self._writer is not None:
+            self._writer.close()
         if self._local is not None:
             self._local.stop()
         import ray_tpu_torch
@@ -123,26 +139,61 @@ class Algorithm:
     _run_one_training_iteration :3020)."""
 
     learner_cls = None  # set by subclass
+    ma_learner_cls = None  # multi-agent variant (PPO sets it)
+    needs_env_runners = True  # ES overrides: no rollout workers
 
     def __init__(self, config: AlgorithmConfig):
         self.config = config
         if config.env is None:
             raise ValueError("config.environment(env=...) is required")
-        _check_ported(config)
         probe = make_env(config.env, config.env_config)
         self.observation_space = probe.observation_space
         self.action_space = probe.action_space
+        if config.env_connectors:
+            # the module acts on the PIPELINE's output space
+            from ray_tpu_torch.rllib.connectors import ConnectorPipeline
+            self.observation_space = ConnectorPipeline(
+                config.env_connectors).observation_space(
+                    self.observation_space)
         probe.close()
 
-        self.module = config._custom_module or self.default_module(
-            self.observation_space, self.action_space)
+        if config.policies:
+            # distinct per-agent policies (reference marl_module.py:40)
+            from ray_tpu_torch.rllib.core.marl_module import \
+                MultiAgentRLModule
+            if config.policy_mapping_fn is None:
+                raise ValueError(
+                    "multi_agent(policies=...) needs a policy_mapping_fn")
+            if self.ma_learner_cls is None:
+                raise ValueError(
+                    f"{type(self).__name__} has no multi-agent learner")
+            agents = getattr(probe, "agents", None)
+            if agents:
+                mapped = {config.policy_mapping_fn(a) for a in agents}
+                unused = set(config.policies) - mapped
+                if unused:
+                    raise ValueError(
+                        f"policies {sorted(unused)} are never produced "
+                        f"by policy_mapping_fn for agents {agents}")
+            self.module = MultiAgentRLModule({
+                mid: (mod or self.default_module(
+                    self.observation_space, self.action_space))
+                for mid, mod in config.policies.items()})
+            learner_cls = self.ma_learner_cls
+        else:
+            self.module = config._custom_module or self.default_module(
+                self.observation_space, self.action_space)
+            learner_cls = self.learner_cls
         # the learners first: without the device they need, nothing else
         # is started
         self.learner_group = LearnerGroup(
-            functools.partial(self.learner_cls, self.module, self.config),
+            functools.partial(learner_cls, self.module, self.config),
             num_learners=config.num_learners, seed=config.seed)
-        self.env_runners = EnvRunnerSet(config, self.module)
-        self.env_runners.sync_weights(self.learner_group.get_weights())
+        if self.needs_env_runners:
+            self.env_runners = EnvRunnerSet(config, self.module)
+            self.env_runners.sync_weights(self.learner_group.get_weights())
+        else:  # derivative-free algorithms (ES) evaluate their own way
+            self.env_runners = None
 
         self._iteration = 0
         self._timesteps_total = 0
@@ -211,6 +262,8 @@ class Algorithm:
             "timesteps_total": self._timesteps_total,
             "extra": self._extra_state(),
         }
+        if self.env_runners is not None and self.config.env_connectors:
+            state["connectors"] = self.env_runners.get_connector_states()
         with open(os.path.join(checkpoint_dir, "algorithm_state.pkl"),
                   "wb") as f:
             pickle.dump(state, f)
@@ -226,8 +279,12 @@ class Algorithm:
         self._iteration = state["iteration"]
         self._timesteps_total = state["timesteps_total"]
         self._restore_extra_state(state.get("extra", {}))
-        self.env_runners.sync_weights(self.learner_group.get_weights())
+        if self.env_runners is not None:
+            if "connectors" in state:
+                self.env_runners.set_connector_states(state["connectors"])
+            self.env_runners.sync_weights(self.learner_group.get_weights())
 
     def stop(self) -> None:
-        self.env_runners.stop()
+        if self.env_runners is not None:
+            self.env_runners.stop()
         self.learner_group.shutdown()

@@ -7,7 +7,8 @@ advantages → LearnerGroup.update(minibatch SGD) → KL-coeff
 additional_update (ppo.py:366) → sync_weights (:522-530)). Loss per
 ppo_learner/ppo_torch_policy: clip surrogate + clipped VF loss +
 entropy bonus + adaptive KL penalty, on tensors on the learner's device.
-Multi-agent PPO is not ported yet (MultiAgentPPOLearner raises).
+Multi-agent PPO sums the per-module losses into one update, with a
+shared KL coefficient that adapts on the mean of the modules' KLs.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm
 from ray_tpu_torch.rllib.algorithms.algorithm_config import AlgorithmConfig
-from ray_tpu_torch.rllib.core.learner import Learner
+from ray_tpu_torch.rllib.core.learner import Learner, MultiAgentLearnerMixin
 from ray_tpu_torch.rllib.utils.postprocessing import (postprocess_fragment,
                                                       standardize)
 
@@ -47,8 +48,11 @@ class PPOLearner(Learner):
         return {"kl_coeff": self.curr_kl_coeff}
 
     def compute_loss(self, batch, extra):
-        out = self.module.forward_train(batch)
-        dist = self.module.action_dist(out["action_dist_inputs"])
+        return self._module_loss(self.module, batch, extra)
+
+    def _module_loss(self, module, batch, extra):
+        out = module.forward_train(batch)
+        dist = module.action_dist(out["action_dist_inputs"])
         logp = dist.logp(batch["actions"])
         logp_ratio = torch.exp(logp - batch["action_logp"])
         adv = batch["advantages"]
@@ -95,15 +99,30 @@ class PPOLearner(Learner):
         return {"curr_kl_coeff": self.curr_kl_coeff}
 
 
-class MultiAgentPPOLearner(PPOLearner):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "multi-agent PPO is not ported yet: ROADMAP Queue 1 item 6, "
-            "'multi-agent PPO'")
+class MultiAgentPPOLearner(MultiAgentLearnerMixin, PPOLearner):
+    """Per-module PPO losses summed into one update (reference
+    marl_module.py:40 + learner.py compute_loss over a MultiAgentBatch).
+    The KL coefficient adapts on the cross-module mean (shared
+    coefficient; per-module KLs are reported individually)."""
+
+    def compute_loss(self, batch, extra):
+        total = 0.0
+        stats: Dict[str, Any] = {}
+        kls = []
+        for mid in self.module.module_ids:
+            loss_m, st = self._module_loss(self.module[mid], batch[mid],
+                                           extra)
+            total = total + loss_m
+            kls.append(st["mean_kl_loss"])
+            for k, v in st.items():
+                stats[f"{mid}/{k}"] = v
+        stats["mean_kl_loss"] = sum(kls) / len(kls)
+        return total, stats
 
 
 class PPO(Algorithm):
     learner_cls = PPOLearner
+    ma_learner_cls = MultiAgentPPOLearner
 
     def training_step(self) -> Dict[str, Any]:
         cfg = self.config
@@ -116,6 +135,36 @@ class PPO(Algorithm):
 
         processed = [postprocess_fragment(f, cfg.gamma, cfg.lambda_)
                      for f in fragments]
+        if cfg.policies:
+            # MultiAgentBatch: split flat rows by the lane→module routing
+            # ([T, N] flatten means row t*N+lane, so the per-row module
+            # is lane_module tiled T times); advantages standardize
+            # per module (each module is its own optimization problem).
+            parts: Dict[str, list] = {}
+            for f, p in zip(fragments, processed):
+                t_len = f["actions"].shape[0]
+                order = f["module_order"]
+                row_mod = np.tile(f["lane_module"], t_len)
+                for i, mid in enumerate(order):
+                    rows = row_mod == i
+                    parts.setdefault(mid, []).append(
+                        {k: v[rows] for k, v in p.items()})
+            batch = {mid: {k: np.concatenate([pp[k] for pp in ps])
+                           for k in ps[0]}
+                     for mid, ps in parts.items()}
+            n_rows = sum(len(b["obs"]) for b in batch.values())
+            self._timesteps_total += n_rows
+            for b in batch.values():
+                b["advantages"] = standardize(b["advantages"])
+            stats = self.learner_group.update(
+                batch, minibatch_size=cfg.minibatch_size,
+                num_iters=cfg.num_epochs, seed=cfg.seed + self._iteration)
+            extra = self.learner_group.additional_update(
+                mean_kl=stats.get("mean_kl_loss", 0.0))
+            stats.update(extra)
+            self.env_runners.sync_weights(
+                self.learner_group.get_weights())
+            return {"learner": stats, "num_env_steps_trained": n_rows}
         batch = {k: np.concatenate([p[k] for p in processed])
                  for k in processed[0]}
         self._timesteps_total += len(batch["obs"])

@@ -6,18 +6,21 @@ rllib/models/catalog.py:205): the tanh MLP actor-critic for vector
 observations and the Nature CNN for [H, W, C] uint8 frames, each with a
 policy and a value head. Layers sit in ModuleLists named as the JAX
 package's params pytree ({"torso"|"convs"|"dense"|"pi"|"vf": [layer]}),
-so params_from_jax maps one onto the other layer by layer.
+so params_from_jax maps one onto the other layer by layer, and flat_order
+walks a module's params in the JAX pytree's leaf order and layout (what
+ravel_pytree flattens, and what ES and parameter noise perturb).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn.utils import skip_init
 
+from ray_tpu_torch.rllib.core.marl_module import MultiAgentRLModule
 from ray_tpu_torch.rllib.core.rl_module import Categorical, RLModule
 from ray_tpu_torch.rllib.env.spaces import Box, Discrete
 
@@ -153,21 +156,43 @@ class DiscreteConvModule(RLModule):
         return Categorical(dist_inputs)
 
 
+def _to_jax_layout(value: np.ndarray) -> np.ndarray:
+    """A param in the port's layout -> the JAX package's: nn.Linear's
+    [out, in] -> [in, out], nn.Conv2d's OIHW -> HWIO."""
+    if value.ndim == 4:
+        return value.transpose(2, 3, 1, 0)
+    return value.T if value.ndim == 2 else value
+
+
+def _from_jax_layout(value: np.ndarray) -> np.ndarray:
+    if value.ndim == 4:
+        return value.transpose(3, 2, 0, 1)
+    return value.T if value.ndim == 2 else value
+
+
 def params_from_jax(module: RLModule, jax_params: Dict[str, Any]
                     ) -> Dict[str, torch.Tensor]:
     """The JAX package's params pytree (numpy leaves) -> this module's
     state_dict: dense weights [in, out] become nn.Linear's [out, in],
     conv kernels HWIO become nn.Conv2d's OIHW. A group is a list of
     layers (torso, pi, the dueling adv/val heads, SAC's and TD3's q1/q2)
-    or one array leaf, a param of its own (SAC's log_alpha)."""
+    or one array leaf, a param of its own (SAC's log_alpha). A
+    MultiAgentRLModule takes the multi-agent tree {module_id: tree}, its
+    keys "<module_id>.<key>"."""
+    if isinstance(module, MultiAgentRLModule):
+        if set(jax_params) != set(module.module_ids):
+            raise KeyError(f"JAX modules {sorted(jax_params)} do not match "
+                           f"the module's {module.module_ids}")
+        return {f"{mid}.{k}": v for mid in module.module_ids
+                for k, v in params_from_jax(module[mid],
+                                            jax_params[mid]).items()}
     out = {}
     for group, layers in jax_params.items():
         if not isinstance(layers, (list, tuple)):
             out[group] = torch.tensor(np.asarray(layers))
             continue
         for i, layer in enumerate(layers):
-            w = np.asarray(layer["w"])
-            w = w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.T
+            w = _from_jax_layout(np.asarray(layer["w"]))
             out[f"{group}.{i}.weight"] = torch.tensor(w)
             out[f"{group}.{i}.bias"] = torch.tensor(np.asarray(layer["b"]))
     want = module.state_dict()
@@ -179,6 +204,69 @@ def params_from_jax(module: RLModule, jax_params: Dict[str, Any]
             raise ValueError(f"{k}: {tuple(v.shape)} from JAX, "
                              f"{tuple(want[k].shape)} in the module")
     return out
+
+
+def _jax_path(key: str) -> Tuple:
+    """A state_dict key -> its leaf's path in the JAX params pytree:
+    "torso.0.weight" -> ("torso", 0, "w"), "log_alpha" -> ("log_alpha",),
+    "pol_a.pi.1.bias" -> ("pol_a", "pi", 1, "b"). Sorting by it is the
+    pytree's leaf order: dict keys sorted, list items by index."""
+    names = {"weight": "w", "bias": "b"}
+    return tuple(int(p) if p.isdigit() else names.get(p, p)
+                 for p in key.split("."))
+
+
+class FlatOrder:
+    """A module's params as one flat vector in the JAX leaf order and
+    layout (flatten), and back (unflatten); leaves() walks them one by
+    one in that order."""
+
+    def __init__(self, module: torch.nn.Module):
+        state = module.state_dict()
+        self.keys: List[str] = sorted(state, key=_jax_path)
+        self.jax_shapes = {
+            k: _to_jax_layout(np.empty(tuple(state[k].shape), np.int8)).shape
+            for k in self.keys}
+        self.sizes = {k: int(np.prod(self.jax_shapes[k], dtype=np.int64))
+                      for k in self.keys}
+        self.dim = sum(self.sizes.values())
+
+    def leaves(self, state: Dict[str, Any]):
+        """(key, the param in the JAX layout as numpy) in leaf order."""
+        for k in self.keys:
+            v = state[k]
+            if isinstance(v, torch.Tensor):
+                v = v.detach().cpu().numpy()
+            yield k, _to_jax_layout(np.asarray(v))
+
+    @staticmethod
+    def from_jax(value: np.ndarray) -> np.ndarray:
+        """One leaf in the JAX layout -> the module's layout (a
+        contiguous copy)."""
+        return np.ascontiguousarray(_from_jax_layout(value))
+
+    def flatten(self, state: Dict[str, Any]) -> np.ndarray:
+        """A state_dict (tensors on any device, or numpy) -> the f32
+        vector ravel_pytree gives of the same params in the JAX tree."""
+        return np.concatenate([v.reshape(-1) for _, v in
+                               self.leaves(state)]).astype(np.float32)
+
+    def unflatten(self, flat: np.ndarray) -> Dict[str, np.ndarray]:
+        """flatten's inverse: a state_dict of numpy arrays."""
+        out, at = {}, 0
+        for k in self.keys:
+            n = self.sizes[k]
+            out[k] = self.from_jax(
+                np.asarray(flat[at:at + n]).reshape(self.jax_shapes[k]))
+            at += n
+        if at != len(flat):
+            raise ValueError(f"{len(flat)} values for {at} params")
+        return out
+
+
+def flat_order(module: torch.nn.Module) -> FlatOrder:
+    """The JAX leaf order and layout of `module`'s params (FlatOrder)."""
+    return FlatOrder(module)
 
 
 def default_module_for(observation_space, action_space,

@@ -181,7 +181,10 @@ class Learner:
               ) -> Dict[str, torch.Tensor]:
         params = [p for p in self.module.parameters()]
         loss, stats = self.compute_loss(mb, extra)
-        grads = list(torch.autograd.grad(loss, params))
+        # a param the loss does not reach (BC's value head) takes a zero
+        # grad, as jax.grad gives it
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            params, torch.autograd.grad(loss, params, allow_unused=True))]
         if self._world > 1:
             grads = self._all_reduce_mean(grads)
         # optax.global_norm: the square root of the sum of squares
@@ -253,6 +256,16 @@ class Learner:
                          for k, v in dev_batch.items()}, extra))
             return sweep_stats(pending)
 
+    @torch.no_grad()
+    def forward_values(self, obs: np.ndarray) -> np.ndarray:
+        """V(obs) from the current weights, on the learner's device: one
+        forward over every row, one copy back (MARWIL's advantage
+        recomputation)."""
+        with self._state_lock:
+            vf = self.module.forward_train(
+                {"obs": self._on_device(obs)})["vf_preds"]
+        return vf.float().cpu().numpy()
+
     # ---- weights (CPU numpy) ----------------------------------------
     def get_weights(self) -> Dict[str, np.ndarray]:
         with self._state_lock:
@@ -273,3 +286,83 @@ class Learner:
             self.module.load_state_dict(_to_torch(state["params"]))
             self._optimizer.load_state_dict(_to_torch(state["opt_state"]))
             self.curr_kl_coeff = state.get("kl_coeff", self.curr_kl_coeff)
+
+
+class MultiAgentLearnerMixin:
+    """update() over a MultiAgentBatch {module_id: columns}.
+
+    The port's counterpart of the JAX package's MultiAgentLearnerMixin
+    (reference parity: Learner.update on a MultiAgentBatch,
+    rllib/policy/sample_batch.py, per-module losses in
+    core/learner/learner.py compute_loss_for_module). Every step gathers
+    each module's minibatch from its own sub-batch, the summed loss gives
+    each module its own grads, and the one Adam (with optax's
+    clip_by_global_norm where set: the norm over the union of the
+    modules' params) steps them together. Each module's minibatch size is
+    round(minibatch_size * n_m / total), and every module takes the same
+    number of steps an epoch; one permutation a module and epoch, drawn
+    in the batch dict's order from one default_rng(seed), as the JAX
+    package draws them."""
+
+    @staticmethod
+    def module_index_sets(n_m: Dict[str, int], minibatch_size: Optional[int],
+                          num_iters: int, seed: int
+                          ) -> Dict[str, np.ndarray]:
+        """{module_id: [steps, module minibatch] row indices}."""
+        rng = np.random.default_rng(seed)
+        total = sum(n_m.values())
+        minibatch_size = minibatch_size or total
+        mb_m = {mid: max(1, min(n, round(minibatch_size * n / total)))
+                for mid, n in n_m.items()}
+        steps_per_epoch = max(1, min(n // mb_m[mid]
+                                     for mid, n in n_m.items()))
+        rows: Dict[str, list] = {mid: [] for mid in n_m}
+        for _ in range(num_iters):
+            perms = {mid: rng.permutation(n) for mid, n in n_m.items()}
+            for s in range(steps_per_epoch):
+                for mid in n_m:
+                    start = s * mb_m[mid]
+                    rows[mid].append(perms[mid][start:start + mb_m[mid]])
+        return {mid: np.stack(r) for mid, r in rows.items()}
+
+    def update(self, batch, minibatch_size=None, num_iters=1, seed=0):
+        from ray_tpu_torch._private import spans as _spans
+        from ray_tpu_torch.util import cuda_sentinel
+        with _spans.span("learner.update", num_iters=num_iters), \
+                cuda_sentinel.step_region("learner.update"):
+            assert self._optimizer is not None, "call build() first"
+            n_m = {mid: len(b["obs"]) for mid, b in batch.items()}
+            idx = {mid: torch.from_numpy(m).to(self.device) for mid, m in
+                   self.module_index_sets(n_m, minibatch_size, num_iters,
+                                          seed).items()}
+            dev_batch = {mid: {k: self._on_device(v) for k, v in b.items()}
+                         for mid, b in batch.items()}
+            extra = self.extra_inputs()
+            pending = []
+            with self._state_lock:
+                for s in range(len(next(iter(idx.values())))):
+                    pending.append(self._step(
+                        {mid: {k: v.index_select(0, idx[mid][s])
+                               for k, v in b.items()}
+                         for mid, b in dev_batch.items()}, extra))
+            return sweep_stats(pending)
+
+    def update_distributed(self, local_batch, minibatch_size=None,
+                           num_iters=1, seed=0):
+        """Minibatch SGD over this rank's per-module shards (equal sizes
+        on every rank: _MeshLearnerActor._local_shard truncates). The
+        shared seed gives every rank the same per-module index sets and
+        step counts, and each step's global minibatch is the per-module
+        union of the ranks' local ones."""
+        n_m = {mid: len(b["obs"]) for mid, b in local_batch.items()}
+        empty = [mid for mid, n in n_m.items() if n == 0]
+        if empty:
+            raise ValueError(
+                f"modules {empty} have no rows on this learner rank: "
+                f"every rank needs >=1 row per module (grow "
+                f"train_batch_size / rollout length or reduce "
+                f"num_learners)")
+        total = sum(n_m.values())
+        local_target = max(1, (minibatch_size or total * self._world)
+                           // self._world)
+        return self.update(local_batch, local_target, num_iters, seed)

@@ -103,7 +103,12 @@ class _MeshLearnerActor:
                      ) -> Dict[str, np.ndarray]:
         """Equal per-rank slices along each column's data axis
         (learner.data_axis_for), truncating the remainder so every rank
-        runs identical step counts."""
+        runs identical step counts. Multi-agent batches are nested
+        {module_id: {col: array}}; each module's rows shard on their own,
+        so every rank holds the same per-module row counts."""
+        if batch and all(isinstance(v, dict) for v in batch.values()):
+            return {mid: self._local_shard(sub)
+                    for mid, sub in batch.items()}
         first = next(iter(batch))
         per = batch[first].shape[self.learner.data_axis_for(first)] \
             // self.world
@@ -128,6 +133,9 @@ class _MeshLearnerActor:
 
     def get_weights(self):
         return self.learner.get_weights()
+
+    def forward_values(self, obs):
+        return self.learner.forward_values(obs)
 
     def set_weights(self, w):
         self.learner.set_weights(w)
@@ -280,6 +288,15 @@ class LearnerGroup:
             [a.additional_update.remote(**kwargs) for a in self._actors],
             timeout=120)
         return outs[0]
+
+    def forward_values(self, obs: np.ndarray) -> np.ndarray:
+        """V(obs) from the current weights, computed where the weights
+        are (the local learner's device, or rank 0 of the gang)."""
+        if self._local is not None:
+            return self._local.forward_values(obs)
+        import ray_tpu_torch
+        return ray_tpu_torch.get(
+            self._actors[0].forward_values.remote(obs), timeout=600)
 
     # ---- weights ----------------------------------------------------
     def get_weights(self):

@@ -13,6 +13,13 @@ under torch.no_grad(), and weights arrive as CPU numpy via set_weights
 (broadcast from the Learner over the object store), so nothing in a
 runner touches CUDA. A runner in an actor (worker_index > 0) runs torch
 on one thread: the actors of one node share its cores.
+
+A MultiAgentRLModule routes each (env, agent) lane to its module through
+the config's policy_mapping_fn: each step runs one forward per module
+over that module's lanes and scatters the results back. Connector
+pipelines (rllib/connectors) transform the lane batch between the env
+and the module; their state rides the runner's checkpoint
+(get_connector_state / set_connector_state).
 """
 
 from __future__ import annotations
@@ -33,7 +40,10 @@ class SingleAgentEnvRunner:
     def __init__(self, env_name: str, module: RLModule,
                  env_config: Optional[Dict[str, Any]] = None,
                  num_envs: int = 1, seed: Optional[int] = None,
-                 worker_index: int = 0, gamma: float = 0.99):
+                 worker_index: int = 0, gamma: float = 0.99,
+                 policy_mapping_fn=None,
+                 env_connectors: Optional[list] = None,
+                 action_connectors: Optional[list] = None):
         if worker_index > 0:
             torch.set_num_threads(1)
         from ray_tpu_torch.rllib.env.multi_agent import (
@@ -61,23 +71,54 @@ class SingleAgentEnvRunner:
         # 0-d f32 tensors: the reference's exploration objects own this
         # state (rllib/utils/exploration/epsilon_greedy.py)
         self._explore_inputs: Dict[str, torch.Tensor] = {}
+        from ray_tpu_torch.rllib.core.marl_module import MultiAgentRLModule
+        self._ma = isinstance(module, MultiAgentRLModule)
+        if self._ma:
+            # Per-agent policies (reference marl_module.py:40 +
+            # policy_mapping_fn): every (env, agent) lane is routed to a
+            # fixed module; per-step inference is one forward per module
+            # over that module's lanes, scattered back.
+            if not isinstance(probe, MultiAgentEnv):
+                raise ValueError(
+                    "multi_agent policies need a MultiAgentEnv")
+            if policy_mapping_fn is None:
+                raise ValueError(
+                    "MultiAgentRLModule needs a policy_mapping_fn")
+            lane_agents = [a for agents in self.env.agents_per_env
+                           for a in agents]
+            self._lane_module_ids = [policy_mapping_fn(a)
+                                     for a in lane_agents]
+            unknown = set(self._lane_module_ids) - set(module.module_ids)
+            if unknown:
+                raise ValueError(
+                    f"policy_mapping_fn produced unknown module ids "
+                    f"{sorted(unknown)}")
+            self._module_order = sorted(set(self._lane_module_ids))
+            self._lanes_by_module = {
+                mid: np.array([i for i, m in
+                               enumerate(self._lane_module_ids)
+                               if m == mid], np.int64)
+                for mid in self._module_order}
+
+        # connector pipelines (reference connectors/): vectorized
+        # obs/reward + action transforms between the env and the module
+        from ray_tpu_torch.rllib.connectors import ConnectorPipeline
+        self._env_pipeline = ConnectorPipeline(env_connectors) \
+            if env_connectors else None
+        self._action_connectors = list(action_connectors or [])
 
         base_seed = None if seed is None else seed + worker_index * 1000
         self._obs, _ = self.env.reset(base_seed)
+        if self._env_pipeline is not None:
+            self._obs = self._env_pipeline.on_reset(self._obs)
         # per-env running episode returns/lengths for metrics
         self._ep_ret = np.zeros(self.env.num_envs, np.float64)
         self._ep_len = np.zeros(self.env.num_envs, np.int64)
         self._completed: List[Dict[str, float]] = []
 
-    @torch.no_grad()
-    def _forward_explore(self, obs) -> Tuple[np.ndarray, np.ndarray,
-                                             np.ndarray]:
-        """Batched stochastic forward -> (actions, logp, vf_preds) as
-        numpy rows aligned with the vector lanes. Discrete actions are
-        int32, as the JAX package's runner samples them; a Box space's
-        stay float. The exploration inputs (epsilon etc.) ride in the
-        batch."""
-        out = self.module.forward_exploration(
+    def _explore_rows(self, module, obs) -> Tuple[np.ndarray, np.ndarray,
+                                                  np.ndarray]:
+        out = module.forward_exploration(
             {"obs": torch.from_numpy(np.asarray(obs)),
              **self._explore_inputs}, self._gen)
         actions = out["actions"].numpy()
@@ -87,9 +128,50 @@ class SingleAgentEnvRunner:
                 out["vf_preds"].numpy())
 
     @torch.no_grad()
-    def _forward_value(self, obs) -> np.ndarray:
-        return self.module.forward_train(
-            {"obs": torch.from_numpy(np.asarray(obs))})["vf_preds"].numpy()
+    def _forward_explore(self, obs) -> Tuple[np.ndarray, np.ndarray,
+                                             np.ndarray]:
+        """Batched stochastic forward -> (actions, logp, vf_preds) as
+        numpy rows aligned with the vector lanes. Discrete actions are
+        int32, as the JAX package's runner samples them; a Box space's
+        stay float. The exploration inputs (epsilon etc.) ride in the
+        batch. Multi-agent modules run one forward per module over its
+        lanes and scatter."""
+        if not self._ma:
+            return self._explore_rows(self.module, obs)
+        obs = np.asarray(obs)
+        n = obs.shape[0]
+        actions = None
+        logp = np.zeros(n, np.float32)
+        vf = np.zeros(n, np.float32)
+        for mid in self._module_order:
+            rows = self._lanes_by_module[mid]
+            a, lp, v = self._explore_rows(self.module[mid], obs[rows])
+            if actions is None:
+                actions = np.zeros((n,) + a.shape[1:], a.dtype)
+            actions[rows] = a
+            logp[rows] = lp
+            vf[rows] = v
+        return actions, logp, vf
+
+    @torch.no_grad()
+    def _forward_value(self, obs, lanes=None) -> np.ndarray:
+        """V(obs) rows; `lanes` maps each row to its vector lane (for
+        module routing when rows are a subset, e.g. truncation
+        bootstraps). Defaults to row i == lane i."""
+        obs = np.asarray(obs)
+        if not self._ma:
+            return self.module.forward_train(
+                {"obs": torch.from_numpy(obs)})["vf_preds"].numpy()
+        if lanes is None:
+            lanes = np.arange(obs.shape[0])
+        vf = np.zeros(obs.shape[0], np.float32)
+        mods = np.asarray(self._lane_module_ids)[lanes]
+        for mid in self._module_order:
+            rows = np.nonzero(mods == mid)[0]
+            if rows.size:
+                vf[rows] = self.module[mid].forward_train(
+                    {"obs": torch.from_numpy(obs[rows])})["vf_preds"].numpy()
+        return vf
 
     def ping(self) -> str:
         """Health probe for FaultTolerantActorManager."""
@@ -110,6 +192,18 @@ class SingleAgentEnvRunner:
     def get_weights(self) -> Dict[str, np.ndarray]:
         return {k: v.numpy().copy()
                 for k, v in self.module.state_dict().items()}
+
+    def get_connector_state(self) -> Optional[List[Dict[str, Any]]]:
+        """The env pipeline's state (running filters, frame stacks), for
+        the algorithm's checkpoint; None without a pipeline."""
+        if self._env_pipeline is None:
+            return None
+        return self._env_pipeline.get_state()
+
+    def set_connector_state(self, state: Optional[List[Dict[str, Any]]]
+                            ) -> None:
+        if self._env_pipeline is not None and state is not None:
+            self._env_pipeline.set_state(state)
 
     def set_explore_inputs(self, inputs: Dict[str, float]) -> None:
         """Update exploration scalars (e.g. {"epsilon": 0.1})."""
@@ -139,9 +233,15 @@ class SingleAgentEnvRunner:
         finals_val: List[np.ndarray] = []
         for step_t in range(steps):
             actions, logp, vf = self._forward_explore(self._obs)
+            env_actions = actions
+            for ac in self._action_connectors:
+                env_actions = ac(env_actions)
             obs_next, rewards, terms, truncs, _, final_obs = \
-                self.env.step(actions)
+                self.env.step(env_actions)
             raw_rewards = rewards.copy()
+            if self._env_pipeline is not None:
+                obs_next, rewards, final_obs = self._env_pipeline.on_step(
+                    obs_next, rewards, terms, truncs, final_obs)
             for i in np.nonzero(np.asarray(terms) | np.asarray(truncs))[0]:
                 if final_obs[i] is not None:
                     finals_idx.append((step_t, int(i)))
@@ -154,7 +254,7 @@ class SingleAgentEnvRunner:
                                    & ~np.asarray(terms))[0]
             if trunc_idx.size:
                 f_obs = np.stack([final_obs[i] for i in trunc_idx])
-                v_fin = self._forward_value(f_obs)
+                v_fin = self._forward_value(f_obs, lanes=trunc_idx)
                 rewards = rewards.copy()
                 rewards[trunc_idx] += self.gamma * v_fin
             cols["obs"].append(self._obs)
@@ -193,6 +293,13 @@ class SingleAgentEnvRunner:
             np.stack(finals_val) if finals_val
             else np.zeros((0, *batch["last_obs"].shape[1:]),
                           batch["last_obs"].dtype))
+        if self._ma:
+            # lane -> module index (into module_order), for per-module
+            # batch splitting on the learner side
+            batch["lane_module"] = np.array(
+                [self._module_order.index(m)
+                 for m in self._lane_module_ids], np.int32)
+            batch["module_order"] = list(self._module_order)
         metrics = self._completed
         self._completed = []
         batch["episode_metrics"] = metrics

@@ -137,22 +137,14 @@ def test_learner_gang_claims_cards_by_local_rank(monkeypatch):
         _claim_gpus([1])
 
 
-RLLIB_UNPORTED = ["CQL", "MARWIL", "BC", "ES", "PG", "A2C"]
-
-
-@pytest.mark.parametrize("name", RLLIB_UNPORTED)
-def test_rllib_unported_algorithms_raise_naming_roadmap(name):
-    from ray_tpu_torch.rllib import get_algorithm_class, registered_algorithms
-    assert registered_algorithms() == ("APPO", "DDPG", "DQN", "IMPALA", "PPO",
-                                       "SAC", "SIMPLEQ", "TD3")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        get_algorithm_class(name)
-
-
-# name -> the module under ray_tpu_torch.rllib.algorithms that defines it
+# name -> the module under ray_tpu_torch.rllib.algorithms that defines it:
+# every name of the JAX package's registry
 RLLIB_PORTED = {"IMPALA": "impala.impala", "APPO": "appo.appo",
                 "DQN": "dqn.dqn", "SAC": "sac.sac", "TD3": "td3.td3",
-                "DDPG": "ddpg.ddpg", "SimpleQ": "dqn.simple_q"}
+                "DDPG": "ddpg.ddpg", "SimpleQ": "dqn.simple_q",
+                "CQL": "cql.cql", "MARWIL": "marwil.marwil",
+                "BC": "marwil.marwil", "ES": "es.es", "PG": "pg.pg",
+                "A2C": "a2c.a2c"}
 
 
 @pytest.mark.parametrize("name", list(RLLIB_PORTED))
@@ -164,20 +156,52 @@ def test_rllib_ported_algorithms_resolve(name):
         f"ray_tpu_torch.rllib.algorithms.{RLLIB_PORTED[name]}"
 
 
+def test_rllib_registry_lists_the_jax_registry():
+    from ray_tpu.rllib import registered_algorithms as jax_registered
+    from ray_tpu_torch.rllib import registered_algorithms
+    assert registered_algorithms() == jax_registered()
+    assert len(registered_algorithms()) == 14
+    assert {n.upper() for n in RLLIB_PORTED} | {"PPO"} == \
+        set(registered_algorithms())
+
+
 def test_rllib_unported_paths_raise_naming_roadmap():
-    from ray_tpu_torch.rllib import LearnerGroup, PPOConfig
-    from ray_tpu_torch.rllib.algorithms.ppo.ppo import MultiAgentPPOLearner
+    """Elastic learner gangs are the one RLlib path left that raises."""
+    from ray_tpu_torch.rllib import LearnerGroup
     with pytest.raises(NotImplementedError, match="ROADMAP.*elastic"):
         LearnerGroup(lambda: None, num_learners=2, elastic_min_learners=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-agent"):
-        MultiAgentPPOLearner(None, PPOConfig())
-    base = PPOConfig().environment("CartPole-v1").learners(device="cpu")
-    for config in (base.copy().env_runners(env_connectors=[object()]),
-                   base.copy().multi_agent(policies={"p": None},
-                                           policy_mapping_fn=str),
-                   base.copy().offline_data(output="/nonexistent")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            config.build()
+
+
+def test_rllib_once_unported_paths_build(tmp_path):
+    """The connectors, multi-agent and offline-output paths that raised
+    before build and run one iteration."""
+    from ray_tpu_torch.rllib import (MultiAgentRLModule, PPOConfig,
+                                     make_multi_agent, register_env)
+    from ray_tpu_torch.rllib.algorithms.ppo.ppo import MultiAgentPPOLearner
+    from ray_tpu_torch.rllib.connectors import MeanStdFilterConnector
+    register_env("ma_cartpole_package", make_multi_agent("CartPole-v1"))
+    base = (PPOConfig().environment("CartPole-v1")
+            .env_runners(rollout_fragment_length=16)
+            .training(train_batch_size=32, minibatch_size=16, num_epochs=1)
+            .learners(device="cpu"))
+    out = tmp_path / "out"
+    for config in (base.copy().env_runners(
+                       env_connectors=[MeanStdFilterConnector()]),
+                   base.copy().environment(
+                       "ma_cartpole_package", env_config={"num_agents": 2})
+                   .multi_agent(policies={"p": None},
+                                policy_mapping_fn=lambda a: "p"),
+                   base.copy().offline_data(output=str(out))):
+        algo = config.build()
+        try:
+            assert algo.train()["num_env_steps_trained"] >= 32
+            if config.policies:
+                assert isinstance(algo.module, MultiAgentRLModule)
+                assert isinstance(algo.learner_group._local,
+                                  MultiAgentPPOLearner)
+        finally:
+            algo.stop()
+    assert sorted(p.name for p in out.iterdir()) == ["output-00000.jsonl"]
 
 
 def test_unported_paths_raise_naming_their_slice():

@@ -74,6 +74,11 @@ VERBATIM = [
     "rllib/algorithms/dqn/__init__.py", "rllib/algorithms/dqn/simple_q.py",
     "rllib/algorithms/sac/__init__.py", "rllib/algorithms/td3/__init__.py",
     "rllib/algorithms/ddpg/__init__.py", "rllib/algorithms/ddpg/ddpg.py",
+    "rllib/offline/__init__.py", "rllib/offline/json_io.py",
+    "rllib/connectors/__init__.py", "rllib/env/catch_pixels.py",
+    "rllib/algorithms/a2c/__init__.py", "rllib/algorithms/a2c/a2c.py",
+    "rllib/algorithms/pg/__init__.py", "rllib/algorithms/marwil/__init__.py",
+    "rllib/algorithms/cql/__init__.py", "rllib/algorithms/es/__init__.py",
 ]
 
 # the lines a copy repairs (reference text -> the port's), each a fault of
