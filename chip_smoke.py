@@ -239,6 +239,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
      median ms beside the card's name and power limit; every learner is
      on the card. The path launches none of the flash kernels
      (launches_by_path "rllib_rest", which must be 0).
+ 14. tune: Data and Tune on the card, in one ray_tpu_torch.init(). (1)
+     ray_tpu_torch.data.from_numpy({"tokens": int32 [256, 1025]}) from
+     SEED in 16 blocks, into TorchTrainer(loop, datasets={"train": ds})
+     with ScalingConfig() as it comes (one worker, one card); the loop
+     runs the slice's model (phase 5's cfg, AdamW(1e-4)) through
+     make_train_step over a data mesh for one epoch of
+     get_dataset_shard("train").iter_batches(batch_size=16,
+     drop_last=True), each batch moved to the card: every row seen once,
+     in from_numpy's order; the first loss the direct slice's on the same
+     params and rows (2e-2); the loss falls; 12 launches of each kernel a
+     step. fit() to the first step, step ms, tokens/s and the loop's wait
+     on iter_batches a step printed. (2) Tuner over that trainer with
+     param_space {"lr": grid_search([3e-4, 1e-3])}, each trial's gang half
+     a card (resources_per_worker {"GPU": 0.5}), 8 steps a trial, both at
+     once (each loop waits, model and state built, for the other, and
+     their steps must overlap in time; both see the same card): both
+     TERMINATED, each config its lr, get_best_result() the lower final
+     loss, 12 launches of each kernel a step in each trial's worker; each
+     trial's step ms and peak memory printed. (3)
+     PopulationBasedTraining(perturbation_interval=2, seed=0) over PPO on
+     CartPole-v1 at tests/test_tune.py:137-160's settings with the
+     learner on the card (learners(device=None)), lr grid 1e-4 and 1e-3,
+     half a card a trial, 6 iterations: at least one exploit, after which
+     the trial's learner holds the source's checkpointed weights exactly,
+     on the card; every learner on the card; no flash launch. (4)
+     range(100000).map_batches(f).random_shuffle(seed=0)
+     .iter_torch_batches(batch_size=4096, device="cuda"): every batch on
+     the card and equal to the host's iter_batches of the same pipeline;
+     rows/s printed. launches_by_path "tune" sums (1)-(4).
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -840,6 +869,11 @@ def main(argv=None) -> int:
         for name in records:
             records[name]["launches_by_path"]["rllib_rest"] = \
                 fa.launches[name]
+
+    with phase("tune"):
+        tune_launches = run_tune(torch, cfg, kind, smi)
+        for name in records:
+            records[name]["launches_by_path"]["tune"] = tune_launches[name]
 
     # after the runs, so that a spill does not hide what the kernels do
     spilled = {src: n for src, n in spills.items()
@@ -2845,6 +2879,409 @@ def run_rllib_rest(torch, kind, smi):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"  phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# phase "tune": Data and Tune on the card (the module docstring's phase
+# 14). The dataset's rows: TUNE_ROWS of the slice's T + 1 tokens, drawn
+# from the first TUNE_VOCAB ids (from uniform ids over the whole vocabulary
+# the best loss is the initial one, so fresh rows would give the loss
+# nothing to fall to), in TUNE_BLOCKS blocks; one epoch is 16 steps
+TUNE_ROWS, TUNE_BLOCKS, TUNE_VOCAB = 256, 16, 4096
+TUNE_TRIAL_STEPS = 8
+TUNE_LRS = (3e-4, 1e-3)
+# 2 trial actors (a CPU each) and the split's tasks beside them; the
+# trials' gangs hold half a card each and no CPU
+TUNE_CPUS = 6
+PBT_LRS = (1e-4, 1e-3)
+PBT_ITERS = 6
+SHUFFLE_ROWS, SHUFFLE_BATCH = 100_000, 4096
+
+
+def tune_loop(config):
+    """The train loop of phase "tune", in the worker the trainer gives the
+    card (or half of it): the slice's steps over this worker's shard of
+    the dataset, config["steps"] of them or, when None, one epoch; each
+    batch is moved to the card as it comes. With config["rendezvous"]
+    (a directory, a count) the loop waits, model and state built, until
+    that many loops are ready, so that trials step at once. Reports
+    once."""
+    loop_start = time.time()
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import Transformer
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the driver has it
+    torch.backends.cudnn.allow_tf32 = False
+    model = Transformer(config["cfg"], seed=SEED)
+    init_state, train_step = make_train_step(
+        lambda p, bt: model.loss(bt), None, make_mesh(MeshConfig(data=-1)),
+        optimizer=adamw(config["lr"], weight_decay=0.01))
+    state = init_state(dict(model.named_parameters()))
+    batches = train.get_dataset_shard("train").iter_batches(
+        batch_size=BATCH, drop_last=True)
+    torch.cuda.synchronize()
+    if config.get("rendezvous"):
+        rendezvous(*config["rendezvous"])
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, rows, waits = [], [], []
+    start = time.time()
+    first_step = t0 = None
+    while config["steps"] is None or len(losses) < config["steps"]:
+        w0 = time.perf_counter()
+        b = next(batches, None)
+        waits.append(time.perf_counter() - w0)
+        if b is None:
+            waits.pop()  # the end of the epoch, not a step's wait
+            break
+        if config["steps"] is None:
+            rows.append(np.array(b["tokens"]))
+        # the block is a read-only view of the store: torch.tensor copies
+        state, metrics = train_step(
+            state, {"tokens": torch.tensor(b["tokens"], device="cuda")})
+        losses.append(metrics["loss"])
+        if first_step is None:
+            losses[0].item()  # the first step's end
+            first_step = time.time()
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses = [x.item() for x in losses]
+    n = len(losses)
+    train.report({
+        "loss": losses[-1], "losses": losses,
+        "rows": np.concatenate(rows) if rows else None,
+        "waits_ms": [w * 1e3 for w in waits],
+        "stamps": {"loop": loop_start, "first_step": first_step},
+        "window": (start, time.time()),
+        "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "step_ms": dt / (n - 1) * 1e3,
+        "tokens_s": BATCH * config["cfg"].max_seq_len * (n - 1) / dt,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": dict(fa.launches)})
+
+
+def rendezvous(directory, count, timeout_s=300):
+    """Marks this process ready in `directory` and waits until `count`
+    processes are."""
+    open(os.path.join(directory, f"up-{os.getpid()}"), "w").close()
+    deadline = time.time() + timeout_s
+    while len(os.listdir(directory)) < count:
+        if time.time() > deadline:
+            raise RuntimeError(f"{len(os.listdir(directory))} of {count} "
+                               f"processes at the rendezvous")
+        time.sleep(0.05)
+
+
+def check_launches(cfg, launches, steps, what):
+    want = cfg.n_layers * steps
+    if launches != {n: want for n in launches}:
+        raise AssertionError(f"{what}: expected {cfg.n_layers} launches of "
+                             f"each kernel per step ({want}), got "
+                             f"{launches}")
+
+
+def tune_trainer(torch, cfg, ds, tokens, root, kind, smi):
+    """Part 1: TorchTrainer(datasets=) over one epoch at the slice's
+    width, ScalingConfig() as it comes. Returns the worker's launches."""
+    import numpy as np
+
+    from ray_tpu_torch.models import Transformer
+    from ray_tpu_torch.train import RunConfig, TorchTrainer
+
+    # the direct slice's loss on the same params and the first batch
+    model = Transformer(cfg, seed=SEED)
+    with torch.no_grad():
+        direct = model.loss({"tokens": torch.tensor(
+            tokens[:BATCH], device="cuda")}).item()
+    del model
+    torch.cuda.empty_cache()
+    fit_start = time.time()
+    result = TorchTrainer(
+        tune_loop, train_loop_config={"cfg": cfg, "lr": 1e-4, "steps": None},
+        datasets={"train": ds},
+        run_config=RunConfig(storage_path=os.path.join(root, "results"),
+                             name="tune_trainer")).fit()
+    fit_s = time.time() - fit_start
+    if result.error is not None:
+        raise AssertionError(f"trainer run failed: {result.error!r}")
+    m = result.metrics
+    losses, waits = m["losses"], m["waits_ms"]
+    print(f"  trainer over the dataset: fit() {fit_s:.2f} s, to the "
+          f"loop {m['stamps']['loop'] - fit_start:.2f} s, to the first "
+          f"step's end {m['stamps']['first_step'] - fit_start:.2f} s; "
+          f"{len(losses)} steps, step {m['step_ms']:.2f} ms, "
+          f"{m['tokens_s']:.1f} tokens/s, wait on iter_batches a step "
+          f"{sum(waits) / len(waits):.3f} ms mean (first "
+          f"{waits[0]:.3f}, the rest at most {max(waits[1:]):.3f}), peak "
+          f"memory {m['peak_gib']:.2f} GiB, launches {m['launches']}; "
+          f"{kind}; {smi}", flush=True)
+    print(f"  losses {['%.4f' % x for x in losses]} (direct first loss "
+          f"{direct:.4f})", flush=True)
+    if len(losses) != TUNE_ROWS // BATCH:
+        raise AssertionError(f"{len(losses)} steps in the epoch, not "
+                             f"{TUNE_ROWS // BATCH}")
+    if not np.array_equal(m["rows"], tokens):
+        raise AssertionError("the loop did not see every row once, in "
+                             "from_numpy's order")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if abs(losses[0] - direct) > 2e-2:
+        raise AssertionError(f"first loss {losses[0]} is not the direct "
+                             f"slice's {direct}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss does not fall: {losses}")
+    check_launches(cfg, m["launches"], len(losses), "trainer")
+    return m["launches"]
+
+
+def tune_trials(cfg, ds, root, kind, smi):
+    """Part 2: Tune over that trainer, two half-card trials at once.
+    Returns the launches of each kernel summed over the trials."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    ready = os.path.join(root, "trials_rendezvous")
+    os.makedirs(ready)
+    trainer = TorchTrainer(
+        tune_loop,
+        train_loop_config={"cfg": cfg, "steps": TUNE_TRIAL_STEPS,
+                           "rendezvous": (ready, len(TUNE_LRS))},
+        scaling_config=ScalingConfig(num_workers=1,
+                                     resources_per_worker={"GPU": 0.5}),
+        datasets={"train": ds},
+        run_config=RunConfig(storage_path=os.path.join(root, "results"),
+                             name="tune_trial"))
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        trainer, param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+        tune_config=tune.TuneConfig(metric="loss", mode="min"),
+        run_config=tune.TuneRunConfig(storage_path=root,
+                                      name="tune_trials")).fit()
+    tune_s = time.perf_counter() - t0
+    if grid.errors:
+        raise AssertionError(f"trial errors: {grid.errors!r}")
+    total = {}
+    for r in grid:
+        m = r.metrics
+        print(f"  trial lr {r.config['lr']:g}: {r.state}, losses "
+              f"{['%.4f' % x for x in m['losses']]}, step "
+              f"{m['step_ms']:.2f} ms, {m['tokens_s']:.1f} tokens/s, peak "
+              f"memory {m['peak_gib']:.2f} GiB, launches {m['launches']}, "
+              f"CUDA_VISIBLE_DEVICES={m['visible']}; {kind}; {smi}",
+              flush=True)
+        if r.state != "TERMINATED":
+            raise AssertionError(f"trial {r.trial_id} ended {r.state}")
+        if len(m["losses"]) != TUNE_TRIAL_STEPS or \
+                not all(math.isfinite(x) for x in m["losses"]):
+            raise AssertionError(f"trial {r.trial_id}: {m['losses']}")
+        check_launches(cfg, m["launches"], TUNE_TRIAL_STEPS,
+                       f"trial lr {r.config['lr']:g}")
+        for name, n in m["launches"].items():
+            total[name] = total.get(name, 0) + n
+    if sorted(r.config["lr"] for r in grid) != sorted(TUNE_LRS):
+        raise AssertionError(f"configs {[r.config for r in grid]}")
+    windows = [r.metrics["window"] for r in grid]
+    overlap = min(w[1] for w in windows) - max(w[0] for w in windows)
+    print(f"  the trials' steps overlapped {overlap:.2f} s", flush=True)
+    if overlap <= 0:
+        raise AssertionError(f"the trials' steps did not overlap: "
+                             f"{windows}")
+    visible = {r.metrics["visible"] for r in grid}
+    if len(visible) != 1 or not visible.pop():
+        raise AssertionError(f"the half-card trials did not share one "
+                             f"card: {[r.metrics['visible'] for r in grid]}")
+    best = grid.get_best_result()
+    lowest = min(grid, key=lambda r: r.metrics["losses"][-1])
+    print(f"  Tuner.fit() {tune_s:.2f} s; best lr "
+          f"{best.config['lr']:g} (final loss "
+          f"{best.metrics['loss']:.4f})", flush=True)
+    if best.trial_id != lowest.trial_id:
+        raise AssertionError(f"best result {best.trial_id} is not the "
+                             f"lower final loss {lowest.trial_id}")
+    return total
+
+
+def checked_ppo(directory, population):
+    """PPO that, in its trial actor, waits for the whole population before
+    its first iteration (PBT needs trials that coexist), and reports after
+    each iteration its flash launches and whether its learner is on the
+    card, and after a restore how far the learner's weights are from the
+    checkpoint's."""
+    from ray_tpu_torch.rllib.algorithms.ppo.ppo import PPO
+
+    class CheckedPPO(PPO):
+        _restored = None
+
+        def restore(self, checkpoint_dir):
+            import pickle
+
+            import numpy as np
+            super().restore(checkpoint_dir)
+            with open(os.path.join(checkpoint_dir, "algorithm_state.pkl"),
+                      "rb") as f:
+                saved = pickle.load(f)["learner"]["params"]
+            params = self.learner_group._local.module.state_dict()
+            self._restored = {
+                "source": checkpoint_dir,
+                "keys_equal": sorted(params) == sorted(saved),
+                "max_abs": max(float(np.abs(
+                    params[k].cpu().numpy() - saved[k]).max())
+                    for k in saved),
+                "on_card": all(t.is_cuda for t in params.values())}
+
+        def train(self):
+            if self._iteration == 0:
+                rendezvous(directory, population)
+            from ray_tpu_torch.ops import flash_attention as fa
+            result = super().train()
+            result["flash_launches"] = dict(fa.launches)
+            result["learner_on_card"] = all(
+                p.is_cuda for p in
+                self.learner_group._local.module.parameters())
+            result["restored"], self._restored = self._restored, None
+            return result
+
+    return CheckedPPO
+
+
+def tune_pbt(root, kind, smi):
+    """Part 3: PBT over PPO (CartPole) with the learners on the card, two
+    trials of half a card each."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.rllib import PPOConfig
+
+    ready = os.path.join(root, "pbt_rendezvous")
+    os.makedirs(ready)
+    # tests/test_tune.py:137-160's settings, the learner on the card
+    base = (PPOConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=0, num_envs_per_env_runner=4,
+                         rollout_fragment_length=64)
+            .training(train_batch_size=256, minibatch_size=64, num_epochs=2)
+            .debugging(seed=3).learners(device=None))
+    base.algo_class = checked_ppo(ready, len(PBT_LRS))
+    pbt = tune.PopulationBasedTraining(
+        metric="episode_reward_mean", mode="max", perturbation_interval=2,
+        hyperparam_mutations={"lr": list(PBT_LRS)}, seed=0)
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        base, param_space={"lr": tune.grid_search(list(PBT_LRS))},
+        tune_config=tune.TuneConfig(metric="episode_reward_mean",
+                                    mode="max", scheduler=pbt),
+        run_config=tune.TuneRunConfig(
+            storage_path=root, name="tune_pbt",
+            stop={"training_iteration": PBT_ITERS},
+            resources_per_trial={"CPU": 1, "GPU": 0.5})).fit()
+    tune_s = time.perf_counter() - t0
+    if grid.errors:
+        raise AssertionError(f"trial errors: {grid.errors!r}")
+    exploits = [h["restored"] for r in grid for h in r.metrics_history
+                if h.get("restored")]
+    launches = {}
+    for r in grid:
+        hist = r.metrics_history
+        print(f"  PBT {r.trial_id}: {r.state}, config now {r.config}, "
+              f"restores "
+              f"{r.num_restores}, episode_reward_mean "
+              f"{['%.1f' % h['episode_reward_mean'] for h in hist]}",
+              flush=True)
+        if r.state != "TERMINATED":
+            raise AssertionError(f"trial {r.trial_id} ended {r.state}")
+        if not all(h["learner_on_card"] for h in hist):
+            raise AssertionError(f"trial {r.trial_id}: a learner off the "
+                                 f"card")
+        for name, n in hist[-1]["flash_launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    print(f"  Tuner.fit() {tune_s:.2f} s; exploits {pbt.num_perturbations}"
+          f": {exploits}; flash launches {launches}; {kind}; {smi}",
+          flush=True)
+    if pbt.num_perturbations < 1 or not exploits:
+        raise AssertionError("no PBT exploit restored a learner")
+    for e in exploits:
+        if not (e["keys_equal"] and e["max_abs"] == 0.0 and e["on_card"]):
+            raise AssertionError(f"an exploit's learner is not the "
+                                 f"source's checkpoint on the card: {e}")
+    if any(launches.values()):
+        raise AssertionError(f"the PBT path launched flash kernels: "
+                             f"{launches}")
+    return launches
+
+
+def tune_data(torch, kind, smi):
+    """Part 4: a shuffled pipeline's batches on the card against the
+    host's batches of the same pipeline."""
+    import numpy as np
+
+    from ray_tpu_torch import data as rd
+
+    pipe = rd.range(SHUFFLE_ROWS).map_batches(
+        lambda b: {"id": b["id"],
+                   "x": np.sqrt(b["id"]).astype(np.float32)}
+    ).random_shuffle(seed=0)
+    host = list(pipe.iter_batches(batch_size=SHUFFLE_BATCH))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = list(pipe.iter_torch_batches(batch_size=SHUFFLE_BATCH,
+                                        device="cuda"))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rows = sum(len(b["id"]) for b in host)
+    print(f"  iter_torch_batches(device=\"cuda\"): {rows} rows in "
+          f"{len(card)} batches, {dt:.3f} s, {rows / dt:.1f} rows/s; "
+          f"{kind}; {smi}", flush=True)
+    if rows != SHUFFLE_ROWS or len(card) != len(host):
+        raise AssertionError(f"{rows} rows, {len(card)} card batches, "
+                             f"{len(host)} host batches")
+    ids = np.concatenate([b["id"] for b in host])
+    if np.array_equal(ids, np.arange(SHUFFLE_ROWS)) or \
+            not np.array_equal(np.sort(ids), np.arange(SHUFFLE_ROWS)):
+        raise AssertionError("the host's rows are not a permutation")
+    for c, h in zip(card, host):
+        if sorted(c) != sorted(h) or not all(
+                t.is_cuda for t in c.values()):
+            raise AssertionError(f"a card batch off the card: {c.keys()}")
+        for k, t in c.items():
+            if not np.array_equal(t.cpu().numpy(), h[k]):
+                raise AssertionError(f"card batch column {k} differs from "
+                                     f"the host's")
+
+
+def run_tune(torch, cfg, kind, smi):
+    """Phase "tune" (the module docstring's phase 14). Returns the
+    launches of each kernel summed over the phase's runs."""
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data as rd
+
+    t0 = time.perf_counter()
+    tokens = np.random.default_rng(SEED).integers(
+        0, TUNE_VOCAB, (TUNE_ROWS, cfg.max_seq_len + 1)).astype(np.int32)
+    ds = rd.from_numpy({"tokens": tokens}, parallelism=TUNE_BLOCKS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    try:
+        ray_tpu_torch.init(num_cpus=TUNE_CPUS,
+                           _session_root=os.path.join(root, "session"))
+        try:
+            if ds.num_blocks() != TUNE_BLOCKS:
+                raise AssertionError(f"{ds.num_blocks()} blocks")
+            launches = tune_trainer(torch, cfg, ds, tokens, root, kind, smi)
+            for name, n in tune_trials(cfg, ds, root, kind, smi).items():
+                launches[name] += n
+            for name, n in tune_pbt(root, kind, smi).items():
+                launches[name] += n
+            tune_data(torch, kind, smi)
+        finally:
+            ray_tpu_torch.shutdown()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 
 # phase "parallel": sequence, expert and pipeline parallelism at

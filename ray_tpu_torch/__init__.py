@@ -8,8 +8,10 @@ imports torch, numpy and the standard library, never jax or ray_tpu.
 Ported so far: the flagship decoder's training step (models/, ops/,
 parallel/), the runtime it runs on (tasks, actors, objects, placement
 groups: a copy of ray_tpu's, with a GPU accelerator manager), Ray
-Train's TorchTrainer over an NCCL (gloo on the CPU) process group, and
-RLlib's PPO (rllib/: the learner on the card, CPU EnvRunner actors).
+Train's TorchTrainer over an NCCL (gloo on the CPU) process group fed by
+Ray Data (data/), Tune over trainers and algorithms (tune/), host-RAM
+collectives (util/collective.py), and RLlib (rllib/: the learners on the
+card, CPU EnvRunner actors).
 Importing this package imports no torch: the runtime is framework-free.
 Entry points run on the card unless the caller names another device
 (``device="cpu"``, ``ScalingConfig(use_gpu=False)``), and raise when

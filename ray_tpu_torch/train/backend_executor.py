@@ -185,8 +185,10 @@ class BackendExecutor:
         every formation fresh processes, whose CUDA sees only these
         cards. The split assumes one gang per node: it does not read
         which cards the scheduler leased, so two gangs on one node (two
-        1-GPU trainers) would both take card 0 (ROADMAP, Queue 1
-        item 1)."""
+        1-GPU trainers) would both take card 0, as the reference's
+        _share_tpu_visibility numbers a gang's chips from 0 (ROADMAP,
+        Queue 3, a defect shared with the reference). Gangs that share
+        one card through fractional GPUs rightly both take card 0."""
         import math
 
         import ray_tpu_torch

@@ -59,6 +59,25 @@ def test_fresh_import_pulls_in_no_jax_and_no_ray_tpu():
     assert imported >= len(SOURCES), (imported, len(SOURCES))
 
 
+@pytest.mark.parametrize("module", ["ray_tpu_torch.data",
+                                    "ray_tpu_torch.tune",
+                                    "ray_tpu_torch.util.collective"])
+def test_data_tune_collective_import_alone_without_jax(module):
+    """Each of Data, Tune and the host collectives, imported alone in a
+    fresh process, loads its modules and no jax, optax or ray_tpu."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            f"print('MODS', len([n for n in sys.modules "
+            f"if n.startswith({module!r})]))\n"
+            f"print('BAD', sorted(n for n in sys.modules if n.split('.')[0] "
+            f"in ('jax', 'jaxlib', 'optax', 'orbax', 'ray_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert int(out.stdout.split("MODS ")[1].split()[0]) >= 1
+
+
 # the package's own sources; _build/ holds build outputs, never sources
 SOURCES = sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")
                  if "_build" not in p.relative_to(PKG).parts)

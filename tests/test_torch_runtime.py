@@ -79,6 +79,12 @@ VERBATIM = [
     "rllib/algorithms/a2c/__init__.py", "rllib/algorithms/a2c/a2c.py",
     "rllib/algorithms/pg/__init__.py", "rllib/algorithms/marwil/__init__.py",
     "rllib/algorithms/cql/__init__.py", "rllib/algorithms/es/__init__.py",
+    "data/__init__.py", "data/block.py", "data/dataset.py",
+    "data/executor.py", "data/grouped.py", "data/io.py", "data/iterator.py",
+    "data/shuffle.py",
+    "tune/__init__.py", "tune/schedulers.py", "tune/search.py",
+    "tune/trainable.py", "tune/tune_controller.py", "tune/tuner.py",
+    "util/collective.py",
 ]
 
 # the lines a copy repairs (reference text -> the port's), each a fault of
