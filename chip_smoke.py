@@ -268,6 +268,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
      .iter_torch_batches(batch_size=4096, device="cuda"): every batch on
      the card and equal to the host's iter_batches of the same pipeline;
      rows/s printed. launches_by_path "tune" sums (1)-(4).
+ 15. serve: GPT-2-125M scoring behind Serve, in one ray_tpu_torch.init().
+     (1) A class deployment (gpt2_scorer: one replica leasing one GPU,
+     max_concurrent_queries 32) builds the slice's model (phase 5's cfg,
+     full width) in the replica from SEED; its @serve.batch(16, 10 ms)
+     method scores the prompts right-padded to the longest in one
+     forward under inference_mode (score_prompts: each prompt's summed
+     next-token log-prob, the argmax after its last position and that
+     token's log-prob). 64 prompts of 128, 512 or 1024 ids from SEED,
+     16 in flight at once through the handle: each answer within
+     SERVE_TOKEN_TOL a token of the script's own forward of the prompt
+     alone, the argmax equal where the direct top-2 gap is SERVE_GAP or
+     more; a batch of more than one request; in the replica, 12 flash
+     forward launches a batch and no backward one. Requests/s, prompt
+     tokens/s, p50/p99 latency, the batch sizes and the replica's peak
+     memory printed. (2) serve.start_fleet(http_port=0, grpc_port=0):
+     16 of the prompts as JSON POSTs at once, each with its own
+     X-Request-Id, twice (the first round builds the proxy's handle),
+     and one through serve.grpc_call, twice, each the handle's answer
+     within the same bars; the replica's record reaches util.tracing's
+     trace of one request id; util.state.serve_fleet() lists the proxy
+     with its admission snapshot; each route's p50/p99 a round printed. (3) After
+     serve.shutdown() frees the GPU, a compiled DAG (an actor leasing
+     the GPU, .score.bind(InputNode())) executed 8 times on [4, 1024]
+     rows: each row within the bars of its direct forward, 12 flash
+     forward launches an execution, and teardown() releases the GPU.
+     The replica runs on cuda:0: no node manager sets
+     CUDA_VISIBLE_DEVICES for a plain actor's lease (ROADMAP Queue 3,
+     "card ids per lease"), and cuda:0 is the one card it leased.
+     launches_by_path "serve" sums the replica's and the DAG actor's.
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -874,6 +903,11 @@ def main(argv=None) -> int:
         tune_launches = run_tune(torch, cfg, kind, smi)
         for name in records:
             records[name]["launches_by_path"]["tune"] = tune_launches[name]
+
+    with phase("serve"):
+        serve_launches = run_serve(torch, cfg, kind, smi)
+        for name in records:
+            records[name]["launches_by_path"]["serve"] = serve_launches[name]
 
     # after the runs, so that a spill does not hide what the kernels do
     spilled = {src: n for src, n in spills.items()
@@ -3282,6 +3316,414 @@ def run_tune(torch, cfg, kind, smi):
         shutil.rmtree(root, ignore_errors=True)
     print(f"  phase {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
+
+
+# phase "serve": GPT-2-125M scoring behind Serve (the module docstring's
+# phase 15). The traffic: SERVE_PROMPTS prompts of ids below the vocab
+# size, each of a length from SERVE_LENGTHS, from SEED; SERVE_WAVE of
+# them in flight at once through the handle, the first SERVE_HTTP of
+# them again over HTTP and one over gRPC; then SERVE_DAG_RUNS executions
+# of a compiled DAG on SERVE_DAG_ROWS rows of the longest length.
+SERVE_PROMPTS, SERVE_LENGTHS = 64, (128, 512, 1024)
+SERVE_WAVE = 16
+SERVE_BATCH, SERVE_WAIT_S = 16, 0.01   # @serve.batch's settings
+SERVE_HTTP = 16
+SERVE_DAG_RUNS, SERVE_DAG_ROWS = 8, 4
+# the controller, the fleet's proxy and the replica (0.1 CPU each)
+SERVE_CPUS = 4
+# the first answer waits on a worker's start, torch's import, CUDA's
+# context and the model's build in the replica; past this the phase
+# fails and prints the replica's log instead of waiting on the
+# controller's retries
+SERVE_FIRST_S = 240
+SERVE_TRACE_S = 60
+# A served answer and the script's own forward of the same prompt alone
+# run the same bf16 model on the same weights; they differ only where
+# the batch's other rows change how cuBLAS splits a product, and so
+# which bf16 rounding (unit roundoff 2^-8 = 3.9e-3) each activation
+# takes. A token's log-prob is a difference of two f32 numbers of the
+# logits' scale, each carrying a few such roundings of the last hidden
+# state: SERVE_TOKEN_TOL (five unit roundoffs) a token, and the sum over
+# n tokens within n times that, a bound that holds even if every
+# token's error had the same sign. The argmax is held where the direct
+# forward's top two logits are SERVE_GAP apart or more (a gap below
+# a few roundings of a logit may flip under them); the next token's
+# log-prob to SERVE_TOKEN_TOL.
+SERVE_TOKEN_TOL = 2e-2
+SERVE_GAP = 5e-2
+
+
+def score_prompts(torch, model, prompts):
+    """The served function: one forward of the prompts (sequences of
+    token ids) right-padded to the longest, under inference_mode. For
+    each prompt: "logprob_sum", the sum of log p(x[t+1] | x[:t+1]) over
+    its own length; "next_token", the argmax of the next token after its
+    last position; "next_logprob", that token's log-prob; and "gap", the
+    top two logits' difference there. The causal mask keeps the padding
+    out of every real position."""
+    import numpy as np
+    dev = model.embed.device
+    lens = [len(p) for p in prompts]
+    b, t = len(prompts), max(lens)
+    host = np.zeros((b, t), dtype=np.int64)
+    for i, p in enumerate(prompts):
+        host[i, :lens[i]] = np.asarray(p, dtype=np.int64)
+    with torch.inference_mode():
+        tokens = torch.from_numpy(host).to(dev)
+        logits = model(tokens)                              # [b, t, V] f32
+        lse = torch.logsumexp(logits, dim=-1)               # [b, t]
+        picked = logits[:, :-1].gather(-1, tokens[:, 1:, None])[..., 0]
+        n = torch.tensor(lens, device=dev)
+        real = torch.arange(t - 1, device=dev)[None, :] < (n[:, None] - 1)
+        sums = ((picked - lse[:, :-1]).double() * real).sum(1)
+        rows = torch.arange(b, device=dev)
+        last = logits[rows, n - 1]                          # [b, V]
+        top2 = last.topk(2, dim=-1)
+        top = top2.indices[:, 0]
+        top_lp = top2.values[:, 0] - lse[rows, n - 1]
+        gap = top2.values[:, 0] - top2.values[:, 1]
+        out = torch.stack([sums, top.double(), top_lp.double(),
+                           gap.double()], 1).tolist()
+    return [{"logprob_sum": s, "next_token": int(k), "next_logprob": lp,
+             "gap": g} for s, k, lp, g in out]
+
+
+def gpt2_scorer(serve):
+    """The Serve deployment's class: GPT-2-125M at full width built in
+    the replica from the config and the seed (the weights never leave
+    it), its prompts coalesced by @serve.batch. __call__ takes a prompt,
+    or "stats" for the replica's launch counts, batch sizes and peak
+    memory. The replica leases one GPU (ray_actor_options), but no node
+    manager sets CUDA_VISIBLE_DEVICES for a plain actor's lease: the
+    replica runs on the current device, cuda:0, which is the one card
+    of a one-card machine."""
+
+    class GPT2Scorer:
+        def __init__(self, cfg, seed):
+            import torch
+
+            from ray_tpu_torch.models import Transformer
+            from ray_tpu_torch.ops import flash_attention as fa
+            self.model = Transformer(cfg, seed=seed)
+            self.device = self.model.embed.device
+            self.batch_sizes = []
+            fa.reset_launches()
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+        def __call__(self, request):
+            if isinstance(request, str) and request == "stats":
+                return self.stats()
+            return self.score(request)
+
+        @serve.batch(max_batch_size=SERVE_BATCH,
+                     batch_wait_timeout_s=SERVE_WAIT_S)
+        def score(self, prompts):
+            # the batch thread, not the actor's: name the device
+            import torch
+            with torch.cuda.device(self.device):
+                out = score_prompts(torch, self.model, prompts)
+            self.batch_sizes.append(len(prompts))
+            return out
+
+        def stats(self):
+            import os as os_
+
+            import torch
+
+            from ray_tpu_torch.ops import flash_attention as fa
+            return {"launches": dict(fa.launches),
+                    "batch_sizes": list(self.batch_sizes),
+                    "peak_gib": torch.cuda.max_memory_allocated(
+                        self.device) / 2**30,
+                    "device": str(self.device), "pid": os_.getpid()}
+
+    return GPT2Scorer
+
+
+class DagScorer:
+    """The compiled DAG's actor: the same model from the same seed,
+    scoring a batch of rows in one forward."""
+
+    def __init__(self, cfg, seed):
+        from ray_tpu_torch.models import Transformer
+        from ray_tpu_torch.ops import flash_attention as fa
+        self.model = Transformer(cfg, seed=seed)
+        fa.reset_launches()
+
+    def score(self, rows):
+        import torch
+        return score_prompts(torch, self.model, list(rows))
+
+    def launches(self):
+        from ray_tpu_torch.ops import flash_attention as fa
+        return dict(fa.launches)
+
+
+def percentiles(xs):
+    import numpy as np
+    return (float(np.percentile(xs, 50)), float(np.percentile(xs, 99)))
+
+
+def check_scores(got, want, what):
+    """Each answer in `got` against the direct forward's in `want` (the
+    same prompts, in order), within the bars above; returns the worst
+    per-token error and the number of argmaxes held."""
+    worst, held = 0.0, 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        n = w["tokens"] - 1
+        err = abs(g["logprob_sum"] - w["logprob_sum"])
+        worst = max(worst, err / n)
+        if not err <= SERVE_TOKEN_TOL * n:
+            raise AssertionError(f"{what} {i}: logprob_sum "
+                                 f"{g['logprob_sum']} against "
+                                 f"{w['logprob_sum']} ({n} tokens)")
+        if w["gap"] >= SERVE_GAP:
+            held += 1
+            if g["next_token"] != w["next_token"]:
+                raise AssertionError(f"{what} {i}: next token "
+                                     f"{g['next_token']} against "
+                                     f"{w['next_token']} (gap {w['gap']})")
+            if not abs(g["next_logprob"] - w["next_logprob"]) \
+                    <= SERVE_TOKEN_TOL:
+                raise AssertionError(f"{what} {i}: next_logprob "
+                                     f"{g['next_logprob']} against "
+                                     f"{w['next_logprob']}")
+    return worst, held
+
+
+def replica_logs(root):
+    """The tail of every worker log under the session that holds a
+    traceback (printed when the replica fails to answer)."""
+    import glob
+    out = []
+    for path in sorted(glob.glob(os.path.join(root, "session", "*", "logs",
+                                              "*"))):
+        try:
+            text = open(path, errors="replace").read()
+        except OSError:
+            continue
+        if "Traceback" in text:
+            out.append(f"--- {path}\n" + "\n".join(text.splitlines()[-40:]))
+    return "\n".join(out) or "(no worker log holds a traceback)"
+
+
+def run_serve(torch, cfg, kind, smi):
+    """Phase "serve" (the module docstring's phase 15). Returns the
+    launches of each kernel in the replica and the DAG's actor."""
+    import json as json_
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models import Transformer
+    from ray_tpu_torch.util import state as state_api
+    from ray_tpu_torch.util import tracing
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int64)
+               for n in rng.choice(SERVE_LENGTHS, SERVE_PROMPTS)]
+    dag_rows = rng.integers(0, cfg.vocab_size, (
+        SERVE_DAG_RUNS, SERVE_DAG_ROWS, max(SERVE_LENGTHS))).astype(np.int64)
+    # the direct forward of each prompt alone, on the card, from the same
+    # seed's weights (its launches are not the path's)
+    model = Transformer(cfg, seed=SEED)
+    direct = []
+    for p in list(prompts) + list(dag_rows.reshape(-1, dag_rows.shape[-1])):
+        direct.append({**score_prompts(torch, model, [p])[0],
+                       "tokens": len(p)})
+    del model
+    torch.cuda.empty_cache()
+    want, want_dag = direct[:SERVE_PROMPTS], direct[SERVE_PROMPTS:]
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        ray_tpu_torch.init(num_cpus=SERVE_CPUS,
+                           _session_root=os.path.join(root, "session"))
+        try:
+            # (1) through the handle
+            app = serve.deployment(
+                name="GPT2Scorer", num_replicas=1, max_concurrent_queries=32,
+                ray_actor_options={"num_gpus": 1})(gpt2_scorer(serve))
+            t1 = time.perf_counter()
+            try:
+                handle = serve.run(app.bind(cfg, SEED))
+                t2 = time.perf_counter()
+                first = ray_tpu_torch.get(handle.remote(prompts[0]),
+                                          timeout=SERVE_FIRST_S)
+            except Exception:
+                print(replica_logs(root), flush=True)
+                raise
+            print(f"  serve.run {t2 - t1:.2f} s, then the first answer "
+                  f"{time.perf_counter() - t2:.2f} s", flush=True)
+            check_scores([first], want[:1], "first answer")
+
+            def call(i):
+                s = time.perf_counter()
+                out = ray_tpu_torch.get(handle.remote(prompts[i]), timeout=300)
+                return out, time.perf_counter() - s
+
+            got, lat = [None] * SERVE_PROMPTS, [0.0] * SERVE_PROMPTS
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(SERVE_WAVE) as pool:
+                for w in range(0, SERVE_PROMPTS, SERVE_WAVE):
+                    wave = range(w, min(w + SERVE_WAVE, SERVE_PROMPTS))
+                    for i, (out, s) in zip(wave, pool.map(call, wave)):
+                        got[i], lat[i] = out, s
+            wall = time.perf_counter() - t1
+            worst, held = check_scores(got, want, "handle answer")
+            stats = ray_tpu_torch.get(handle.remote("stats"), timeout=60)
+            sizes = stats["batch_sizes"]
+            p50, p99 = percentiles(lat)
+            n_tok = sum(len(p) for p in prompts)
+            print(f"  handle: {SERVE_PROMPTS} requests in {wall:.3f} s, "
+                  f"{SERVE_PROMPTS / wall:.2f} requests/s, "
+                  f"{n_tok / wall:.1f} prompt tokens/s, latency p50 "
+                  f"{p50 * 1e3:.1f} ms p99 {p99 * 1e3:.1f} ms; batch sizes "
+                  f"{sizes}; replica peak memory {stats['peak_gib']:.2f} "
+                  f"GiB on {stats['device']}; worst |error| a token "
+                  f"{worst:.3g}, argmax held on {held}; {kind}; {smi}",
+                  flush=True)
+            if max(sizes) < 2:
+                raise AssertionError(f"no batch coalesced: {sizes}")
+            check_replica(cfg, stats, "replica")
+
+            # (2) through the ingress fleet
+            st = serve.start_fleet(http_port=0, grpc_port=0)
+            proxy = st["proxies"][0]
+
+            def post(i):
+                rid = f"chipsmoke{i:04d}"  # round 2: i + SERVE_HTTP
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{proxy['http_port']}/GPT2Scorer",
+                    data=json_.dumps(
+                        prompts[i % SERVE_HTTP].tolist()).encode(),
+                    headers={"Content-Type": "application/json",
+                             "X-Request-Id": rid})
+                s = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    body = json_.loads(resp.read())
+                    echoed = resp.headers.get("X-Request-Id")
+                if echoed != rid:
+                    raise AssertionError(f"X-Request-Id {echoed} for {rid}")
+                return body["result"], time.perf_counter() - s
+
+            # twice: the proxy's first requests build its handle to the
+            # deployment; the second round is the steady state
+            handle_ans = [{**g, "tokens": len(p)}
+                          for g, p in zip(got, prompts)]
+            rounds = []
+            for r in range(2):
+                with ThreadPoolExecutor(SERVE_HTTP) as pool:
+                    http = list(pool.map(post, range(
+                        r * SERVE_HTTP, (r + 1) * SERVE_HTTP)))
+                check_scores([a for a, _ in http], handle_ans[:SERVE_HTTP],
+                             "HTTP answer")
+                rounds.append(percentiles([s for _, s in http]))
+            g_s = []
+            for r in range(2):
+                s = time.perf_counter()
+                g_ans = serve.grpc_call(f"127.0.0.1:{proxy['grpc_port']}",
+                                        "GPT2Scorer", prompts[r],
+                                        request_id=f"chipsmokegrpc{r}")
+                g_s.append(time.perf_counter() - s)
+                check_scores([g_ans], handle_ans[r:r + 1], "gRPC answer")
+            print(f"  HTTP: {SERVE_HTTP} requests at once, twice: latency "
+                  + ", then ".join(f"p50 {a * 1e3:.1f} ms p99 {b * 1e3:.1f} "
+                                   f"ms" for a, b in rounds)
+                  + f"; gRPC: one request, twice: "
+                  f"{g_s[0] * 1e3:.1f} ms, then {g_s[1] * 1e3:.1f} ms; "
+                  f"{kind}; {smi}", flush=True)
+            deadline = time.monotonic() + SERVE_TRACE_S
+            recs = []
+            while time.monotonic() < deadline:
+                recs = tracing.get_trace("chipsmoke0000")
+                if any("handle_request" in r.get("name", "") for r in recs):
+                    break
+                time.sleep(0.5)
+            else:
+                raise AssertionError(f"the replica's record of request "
+                                     f"chipsmoke0000 never reached its "
+                                     f"trace: {recs}")
+            fleet = state_api.serve_fleet()
+            live = [p for p in fleet["proxies"]
+                    if p.get("admission") and "GPT2Scorer" in p["admission"]]
+            if not (fleet["enabled"] and live):
+                raise AssertionError(f"serve_fleet() lists no live proxy "
+                                     f"with an admission snapshot: {fleet}")
+            print(f"  trace chipsmoke0000: {sorted({r['name'] for r in recs})}"
+                  f"; fleet: {len(fleet['proxies'])} proxy, admission "
+                  f"{live[0]['admission']['GPT2Scorer']}", flush=True)
+            stats = ray_tpu_torch.get(handle.remote("stats"), timeout=60)
+            check_replica(cfg, stats, "replica after HTTP and gRPC")
+            launches = dict(stats["launches"])
+            serve.shutdown()
+
+            # (3) a compiled DAG, the card's GPU free again
+            deadline = time.monotonic() + 60
+            while ray_tpu_torch.available_resources().get("GPU", 0) < 1:
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"serve.shutdown() left the GPU leased: "
+                        f"{ray_tpu_torch.available_resources()}")
+                time.sleep(0.2)
+            scorer = ray_tpu_torch.remote(DagScorer)
+            with InputNode() as inp:
+                dag = scorer.options(num_gpus=1).bind(cfg, SEED).score.bind(
+                    inp)
+            compiled = dag.experimental_compile()
+            actor = next(iter(compiled._actor_seed.values()))
+            times, dag_got = [], []
+            for rows in dag_rows:
+                s = time.perf_counter()
+                dag_got += ray_tpu_torch.get(compiled.execute(rows),
+                                             timeout=SERVE_FIRST_S)
+                times.append(time.perf_counter() - s)
+            check_scores(dag_got, want_dag, "DAG answer")
+            dag_launches = ray_tpu_torch.get(actor.launches.remote(),
+                                             timeout=60)
+            want_dag_launches = {
+                "flash_fwd": cfg.n_layers * SERVE_DAG_RUNS,
+                "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+            if dag_launches != want_dag_launches or compiled.fallbacks \
+                    or compiled.executions != SERVE_DAG_RUNS:
+                raise AssertionError(
+                    f"DAG: launches {dag_launches}, executions "
+                    f"{compiled.executions}, fallbacks {compiled.fallbacks}")
+            compiled.teardown()
+            deadline = time.monotonic() + 60
+            while ray_tpu_torch.available_resources().get("GPU", 0) < 1:
+                if time.monotonic() > deadline:
+                    raise AssertionError("teardown() did not release the "
+                                         "DAG's actor")
+                time.sleep(0.2)
+            print(f"  DAG: {SERVE_DAG_RUNS} executions of [{SERVE_DAG_ROWS},"
+                  f" {dag_rows.shape[-1]}], first {times[0]:.3f} s, the "
+                  f"rest {min(times[1:]) * 1e3:.1f}-"
+                  f"{max(times[1:]) * 1e3:.1f} ms; launches {dag_launches};"
+                  f" teardown released the GPU; {kind}; {smi}", flush=True)
+            for name, n in dag_launches.items():
+                launches[name] += n
+        finally:
+            ray_tpu_torch.shutdown()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def check_replica(cfg, stats, what):
+    """The replica's forward ran every batch through the flash forward
+    kernel (one launch a layer) and never the backward ones."""
+    want = {"flash_fwd": cfg.n_layers * len(stats["batch_sizes"]),
+            "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    if stats["launches"] != want:
+        raise AssertionError(f"{what}: launches {stats['launches']}, want "
+                             f"{want} for {len(stats['batch_sizes'])} "
+                             f"batches")
 
 
 # phase "parallel": sequence, expert and pipeline parallelism at

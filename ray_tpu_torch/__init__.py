@@ -10,8 +10,10 @@ parallel/), the runtime it runs on (tasks, actors, objects, placement
 groups: a copy of ray_tpu's, with a GPU accelerator manager), Ray
 Train's TorchTrainer over an NCCL (gloo on the CPU) process group fed by
 Ray Data (data/), Tune over trainers and algorithms (tune/), host-RAM
-collectives (util/collective.py), and RLlib (rllib/: the learners on the
-card, CPU EnvRunner actors).
+collectives (util/collective.py), RLlib (rllib/: the learners on the
+card, CPU EnvRunner actors), and Serve (serve/: deployments, @serve.batch,
+the HTTP/gRPC ingress fleet) with the lazy task graphs (dag/) and trace
+propagation (util/tracing.py).
 Importing this package imports no torch: the runtime is framework-free.
 Entry points run on the card unless the caller names another device
 (``device="cpu"``, ``ScalingConfig(use_gpu=False)``), and raise when

@@ -205,9 +205,8 @@ class ActorClass:
 
     def bind(self, *args: Any, **kwargs: Any):
         """Lazy graph node (reference dag/class_node.py)."""
-        raise NotImplementedError(
-            "ray_tpu_torch.dag is not ported yet (ROADMAP.md, Queue 1: "
-            "dag)")
+        from ray_tpu_torch.dag import ClassNode
+        return ClassNode(self, args, kwargs)
 
     def _default_concurrency(self) -> int:
         """Async actors (any `async def` method) default to concurrent

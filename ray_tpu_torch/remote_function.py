@@ -108,9 +108,8 @@ class RemoteFunction:
     def bind(self, *args: Any, **kwargs: Any):
         """Lazy graph node (reference dag/function_node.py): builds a
         ray_tpu_torch.dag.FunctionNode instead of submitting now."""
-        raise NotImplementedError(
-            "ray_tpu_torch.dag is not ported yet (ROADMAP.md, Queue 1: "
-            "dag)")
+        from ray_tpu_torch.dag import FunctionNode
+        return FunctionNode(self, args, kwargs)
 
     def remote(self, *args: Any, **kwargs: Any) -> Any:
         ctx = worker_mod.client_context()

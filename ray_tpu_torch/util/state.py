@@ -356,9 +356,42 @@ def serve_fleet() -> Dict[str, Any]:
     proxies with ports, health, drain flags, plus each live proxy's
     admission snapshot (in-flight counts, limits, shed totals). CLI:
     `ray_tpu serve fleet`; dashboard: /api/serve/fleet."""
-    raise NotImplementedError(
-        "ray_tpu_torch.serve is not ported yet (ROADMAP.md, Queue 1: "
-        "serve)")
+    import ray_tpu_torch
+    from ray_tpu_torch.serve._private.proxy_fleet.fleet import (
+        PROXY_NAME_PREFIX)
+    try:
+        controller = ray_tpu_torch.get_actor("SERVE_CONTROLLER",
+                                       namespace="serve")
+    except Exception:  # noqa: BLE001 - serve not running
+        return {"enabled": False, "proxies": []}
+    status = ray_tpu_torch.get(controller.fleet_status.remote(), timeout=30)
+    # enrich with live admission snapshots, one batched wait
+    pending = []
+    for p in status.get("proxies", ()):
+        try:
+            h = ray_tpu_torch.get_actor(
+                f"{PROXY_NAME_PREFIX}{p['node_id'][:12]}",
+                namespace="serve")
+            pending.append((p, h.status.remote()))
+        except Exception:  # noqa: BLE001 - proxy mid-replacement
+            p["admission"] = None
+    if pending:
+        ready, _ = ray_tpu_torch.wait([r for _p, r in pending],
+                                num_returns=len(pending), timeout=10)
+        ready_set = {r.hex() for r in ready}
+        for p, ref in pending:
+            if ref.hex() in ready_set:
+                try:
+                    # ready refs: local materialize, zero extra RPCs
+                    live = ray_tpu_torch.get(ref, timeout=10)  # graftlint: disable=RT002
+                    p["admission"] = live.get("admission")
+                    p["inflight"] = live.get("inflight")
+                    p["shed_total"] = live.get("shed_total")
+                except Exception:  # noqa: BLE001 - died mid-query
+                    p["admission"] = None
+            else:
+                p["admission"] = None
+    return status
 
 
 def replay_shards() -> Dict[str, Any]:

@@ -4,7 +4,8 @@ products, bf16 outputs) and rejects a kernel that drops the ragged last
 V tile from the product while keeping its keys in the softmax sum. dq's
 query row 0, zero in exact arithmetic, is held to its rounding bound:
 a dQ summed as the kernel sums it passes at any seed, and ordinary values
-planted on that row fail."""
+planted on that row fail. Phase "serve"'s scoring gives a padded prompt
+its own forward's answer, and its bars accept and reject as stated."""
 
 import importlib.util
 from pathlib import Path
@@ -130,3 +131,54 @@ def test_check_accepts_kernel_like_dq_at_any_seed(seed):
     assert chip_smoke.excess(dq, ref, floor) < 0.5
     # the zero row: the kernel's own rounding stays far inside its bound
     assert chip_smoke.excess(dq[:, :1], ref[:, :1], floor[:, :1]) < 0.1
+
+
+def _serve_model():
+    from ray_tpu_torch.models import TINY, Transformer
+    torch.manual_seed(0)
+    return Transformer(TINY.replace(dtype="float32"), device="cpu", seed=0)
+
+
+def test_serve_scores_of_a_padded_batch_are_each_prompt_alone():
+    """Phase "serve"'s scoring: right-padding a prompt to the batch's
+    longest leaves its answer as its own forward's, and the answer is
+    the log-softmax of its logits."""
+    model = _serve_model()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, n) for n in (5, 33, 17)]
+    batched = chip_smoke.score_prompts(torch, model, prompts)
+    for p, got in zip(prompts, batched):
+        alone = chip_smoke.score_prompts(torch, model, [p])[0]
+        assert got["next_token"] == alone["next_token"]
+        np.testing.assert_allclose(
+            [got["logprob_sum"], got["next_logprob"], got["gap"]],
+            [alone["logprob_sum"], alone["next_logprob"], alone["gap"]],
+            rtol=1e-5, atol=1e-5)  # the gap: a difference of two logits
+        with torch.no_grad():
+            logp = torch.log_softmax(
+                model(torch.as_tensor(p)[None]).double(), -1)[0]
+        np.testing.assert_allclose(
+            got["logprob_sum"],
+            float(logp[:-1].gather(-1, torch.as_tensor(p[1:])[:, None])
+                  .sum()), rtol=1e-5)
+        assert got["next_token"] == int(logp[-1].argmax())
+
+
+def test_serve_check_scores_bars():
+    """The served answers' bars: a log-prob sum within SERVE_TOKEN_TOL a
+    token passes and one beyond fails; a different argmax fails where
+    the direct top-2 gap is SERVE_GAP or more and is not held below."""
+    want = {"logprob_sum": -100.0, "next_token": 7, "next_logprob": -2.0,
+            "gap": chip_smoke.SERVE_GAP, "tokens": 11}
+    bar = chip_smoke.SERVE_TOKEN_TOL * 10
+    ok = dict(want, logprob_sum=-100.0 + 0.9 * bar)
+    assert chip_smoke.check_scores([ok], [want], "t") == (
+        pytest.approx(0.9 * chip_smoke.SERVE_TOKEN_TOL), 1)
+    with pytest.raises(AssertionError, match="logprob_sum"):
+        chip_smoke.check_scores([dict(want, logprob_sum=-100.0 - 1.1 * bar)],
+                                [want], "t")
+    with pytest.raises(AssertionError, match="next token"):
+        chip_smoke.check_scores([dict(want, next_token=8)], [want], "t")
+    near = dict(want, gap=0.5 * chip_smoke.SERVE_GAP)
+    assert chip_smoke.check_scores([dict(want, next_token=8)], [near],
+                                   "t")[1] == 0

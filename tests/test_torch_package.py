@@ -61,10 +61,14 @@ def test_fresh_import_pulls_in_no_jax_and_no_ray_tpu():
 
 @pytest.mark.parametrize("module", ["ray_tpu_torch.data",
                                     "ray_tpu_torch.tune",
-                                    "ray_tpu_torch.util.collective"])
+                                    "ray_tpu_torch.util.collective",
+                                    "ray_tpu_torch.serve",
+                                    "ray_tpu_torch.dag",
+                                    "ray_tpu_torch.util.tracing"])
 def test_data_tune_collective_import_alone_without_jax(module):
-    """Each of Data, Tune and the host collectives, imported alone in a
-    fresh process, loads its modules and no jax, optax or ray_tpu."""
+    """Each of Data, Tune, the host collectives, Serve, the lazy task
+    graphs and trace propagation, imported alone in a fresh process,
+    loads its modules and no jax, optax or ray_tpu."""
     code = (f"import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             f"print('MODS', len([n for n in sys.modules "
