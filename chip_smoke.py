@@ -297,6 +297,40 @@ Phases, each of which raises (and so exits non-zero) on failure:
      CUDA_VISIBLE_DEVICES for a plain actor's lease (ROADMAP Queue 3,
      "card ids per lease"), and cuda:0 is the one card it leased.
      launches_by_path "serve" sums the replica's and the DAG actor's.
+ 16. ops: the operator surfaces against one cluster an operator starts
+     through the CLI (run_ops). (1) `python -m ray_tpu_torch start --head
+     --block --num-cpus 8` with the phase's temp dir as its TMPDIR, where
+     it writes its head file; every later CLI call reads the head's
+     address from RAY_TPU_ADDRESS, and `status` shows the node's GPU as
+     1. (2)
+     `job submit --wait` of this script in its job mode (`--job-entry`):
+     a one-worker TorchTrainer.fit() of the slice's model at full width
+     on phase 5's tokens for phase 6's WARMUP + TIMED steps, printing one
+     JOB_RESULT line; SUCCEEDED in `job status` and `job list`, its logs
+     hold the line, its first loss within 2e-2 of phase 5's, the last
+     below the first, 12 launches of each kernel a step. A job that exits
+     3 reads FAILED and `job submit --wait` exits 1. (3) `client-server` on
+     127.0.0.1, and a client process (this script's `--client-entry`,
+     CUDA_VISIBLE_DEVICES empty) that init()s ray:// and creates a named
+     actor leasing the GPU with the slice's model from SEED; through the
+     proxy it scores OPS_ROWS rows of 1,024 ids OPS_CALLS times, each row
+     within phase 15's bars of the phase's direct forward, 12 forward
+     launches a call and no backward one; round trip p50/p99 printed.
+     (4) The dashboard (start_dashboard) while that actor lives: GPU 1 in
+     /api/cluster, the job SUCCEEDED in /api/jobs, the actor in
+     /api/actors, ray_tpu_ series on /metrics, and /api/profile?device=1
+     while the actor runs forwards: a trace of the actor's process that
+     names the flash forward kernel. The client's shutdown() frees the
+     GPU within OPS_FREE_S. (5) workflow.run of a GPU step scoring the
+     same rows under a CPU step, storage in a temp dir: the rows within
+     the same bars; resume returns the same output and runs no step (the
+     step's marker file). (6) `list actors`, `list tasks`, `summary`,
+     `timeline -o`, `memory`, `goodput` and `job list` exit 0, the
+     timeline non-empty. The head ends on SIGTERM, exits 0 and removes
+     its head file; nothing calls `stop`, which kills by pattern across
+     the machine.
+     launches_by_path "ops" sums the job's worker, the client's actor and
+     the workflow's step.
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -383,6 +417,14 @@ COST_CALLS = 20
 STEP_FORCED_BYTES = 0
 TRACE_KERNELS = {"flash_fwd": "fwd_kernel", "flash_bwd_dkv": "dkv_kernel",
                  "flash_bwd_dq": "dq_kernel"}
+
+
+def slice_config():
+    """Phase "slice"'s configuration, GPT-2-125M at full width, which
+    phases "tooling", "tune", "serve" and "ops" run too."""
+    from ray_tpu_torch.models import GPT2_125M
+    return GPT2_125M.replace(remat=False, attention_impl="auto",
+                             loss_chunk=0)
 
 
 @contextlib.contextmanager
@@ -673,7 +715,20 @@ def main(argv=None) -> int:
                          "write the per-op tables to FILE[.trainer|.rllib] "
                          "and print the "
                          "threads' CPU seconds over the timed steps")
+    ap.add_argument("--job-entry", nargs=2, metavar=("TOKENS", "ROOT"),
+                    help="phase \"ops\"'s submitted job: train the slice's "
+                         "model on TOKENS (.npy) through the cluster at "
+                         "RAY_TPU_ADDRESS; print JOB_RESULT")
+    ap.add_argument("--client-entry", nargs=2, metavar=("GO", "RELEASE"),
+                    help="phase \"ops\"'s thin client: once the file GO "
+                         "holds the proxy's ray:// address, score through "
+                         "it, print CLIENT_RESULT, and hold the actor until "
+                         "the file RELEASE exists")
     args = ap.parse_args(argv)
+    if args.job_entry:
+        return job_entry(*args.job_entry)
+    if args.client_entry:
+        return client_entry(*args.client_entry)
 
     import torch
     if not torch.cuda.is_available():
@@ -772,8 +827,7 @@ def main(argv=None) -> int:
         reference_check(torch, Transformer, narrow, (1, 2049), gen)
 
     with phase("slice"):
-        cfg = GPT2_125M.replace(remat=False, attention_impl="auto",
-                                loss_chunk=0)
+        cfg = slice_config()
         model = Transformer(cfg, seed=SEED)
         tokens = torch.randint(0, cfg.vocab_size,
                                (BATCH, cfg.max_seq_len + 1), generator=gen,
@@ -908,6 +962,11 @@ def main(argv=None) -> int:
         serve_launches = run_serve(torch, cfg, kind, smi)
         for name in records:
             records[name]["launches_by_path"]["serve"] = serve_launches[name]
+
+    with phase("ops"):
+        ops_launches = run_ops(torch, cfg, tokens, slice_first, kind, smi)
+        for name in records:
+            records[name]["launches_by_path"]["ops"] = ops_launches[name]
 
     # after the runs, so that a spill does not hide what the kernels do
     spilled = {src: n for src, n in spills.items()
@@ -4238,11 +4297,10 @@ class StepLoop:
 
         import torch
 
-        from ray_tpu_torch.models import GPT2_125M, Transformer
+        from ray_tpu_torch.models import Transformer
         from ray_tpu_torch.parallel.train_step import adamw, make_train_step
         torch.backends.cuda.matmul.allow_tf32 = False
-        cfg = GPT2_125M.replace(remat=False, attention_impl="auto",
-                                loss_chunk=0)
+        cfg = slice_config()
         model = Transformer(cfg, seed=SEED)
         init_state, self._step = make_train_step(
             lambda p, bt: model.loss(bt),
@@ -4505,6 +4563,680 @@ def write_profile(run, path):
     with open(path, "w") as f:
         f.write(table)
     print("\n".join(table.splitlines()[:25]), flush=True)
+
+
+# phase "ops": the operator surfaces (the module docstring's phase 16).
+# One cluster, started through the CLI as an operator starts one; the
+# job's trainer, the client's actor and the workflow's step each lease
+# the card in turn.
+OPS_CPUS = 8
+OPS_ROWS, OPS_CALLS = 4, 4             # the client's rows and its calls
+OPS_ACTOR, OPS_NAMESPACE = "ops_scorer", "ops"
+OPS_FREE_S = 30       # the GPU back in available_resources after shutdown()
+OPS_PROFILE_S = 2.0   # /api/profile?device=1's window
+# the pause between the traced loop's forwards: a node manager waits for
+# a worker's trace OPS_PROFILE_S + 5 s (PROFILE_WORKER_GRACE_S), and
+# stopping torch.profiler and writing a trace of back-to-back forwards
+# (~800 kernels and as many aten ops each) can take longer than that
+OPS_LOOP_PAUSE_S = 0.2
+OPS_START_S = 300     # a process's first answer (imports, CUDA, the model)
+# the predicted seconds of each step (PERF.md §6, phase "ops"), from the
+# trainer's 17-29 s to its first step and Serve's 25-34 s to a replica
+OPS_PREDICT_S = {"head": 4.0, "job": 45.0, "failed job": 6.0,
+                 "client": 35.0, "dashboard": 15.0, "workflow": 25.0,
+                 "resume": 1.0, "views": 15.0, "teardown": 5.0}
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def ops_rows(cfg):
+    """The OPS_ROWS rows of max_seq_len ids that the client and the
+    workflow score, from SEED."""
+    import numpy as np
+    return np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (OPS_ROWS, cfg.max_seq_len)).astype(np.int64)
+
+
+def score_array(out):
+    """score_prompts' answers as a [rows, 3] float64 array: the summed
+    log-prob, the argmax after the last position and its log-prob."""
+    import numpy as np
+    return np.array([[o["logprob_sum"], o["next_token"], o["next_logprob"]]
+                     for o in out], dtype=np.float64)
+
+
+def array_scores(scores):
+    """score_array's rows back as check_scores reads them."""
+    return [{"logprob_sum": float(s), "next_token": int(k),
+             "next_logprob": float(lp)} for s, k, lp in scores]
+
+
+class OpsScorer:
+    """The thin client's actor: the slice's model from SEED on the card
+    (device None), scoring rows through the proxy; a thread of its own
+    runs forwards between start_loop() and stop_loop(), so that a device
+    trace of its process sees the kernels."""
+
+    def __init__(self, cfg, seed):
+        from ray_tpu_torch.models import Transformer
+        from ray_tpu_torch.ops import flash_attention as fa
+        self.model = Transformer(cfg, device=None, seed=seed)
+        fa.reset_launches()
+
+    def ready(self):
+        return os.getpid()
+
+    def score(self, rows):
+        import torch
+
+        from ray_tpu_torch.ops import flash_attention as fa
+        scores = score_array(score_prompts(torch, self.model, list(rows)))
+        return {"scores": scores, "launches": dict(fa.launches)}
+
+    def start_loop(self, rows, pause_s):
+        import threading
+
+        import torch
+        self._stop, self.forwards = threading.Event(), 0
+
+        def loop():
+            while not self._stop.is_set():
+                score_prompts(torch, self.model, list(rows))
+                torch.cuda.synchronize()
+                self.forwards += 1
+                self._stop.wait(pause_s)
+
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name="ops-loop")
+        self._thread.start()
+        return os.getpid()
+
+    def loop_forwards(self):
+        return self.forwards
+
+    def stop_loop(self):
+        from ray_tpu_torch.ops import flash_attention as fa
+        self._stop.set()
+        self._thread.join(timeout=60)
+        return {"forwards": self.forwards, "launches": dict(fa.launches)}
+
+
+def ops_score_step(cfg, rows, marker):
+    """The workflow's GPU step: the client's scorer, built anew, scores
+    `rows`; appends one byte to `marker` each time it runs."""
+    with open(marker, "a") as f:
+        f.write("x")
+    return OpsScorer(cfg, SEED).score(rows)
+
+
+def ops_summarize_step(scored):
+    """The workflow's CPU step: the rows' mean summed log-prob beside the
+    scores."""
+    return {**scored, "mean_logprob": float(scored["scores"][:, 0].mean())}
+
+
+def job_entry(tokens_path, root):
+    """`chip_smoke.py --job-entry TOKENS ROOT`, the submitted job's
+    driver: a one-worker TorchTrainer.fit() of the slice's model on the
+    cluster at RAY_TPU_ADDRESS. It leases no card itself and touches no
+    CUDA; the trainer's worker does. Prints one JOB_RESULT line."""
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private.accelerators.nvidia_gpu import \
+        NvidiaGPUAcceleratorManager
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    driver_start = process_start_time()
+    ray_tpu_torch.init(os.environ["RAY_TPU_ADDRESS"])
+    try:
+        visible = NvidiaGPUAcceleratorManager.\
+            get_current_node_accelerator_ids()[0]
+        t0 = time.time()
+        result = TorchTrainer(
+            trainer_loop,
+            train_loop_config={"cfg": slice_config(),
+                               "tokens": np.load(tokens_path),
+                               "visible": visible, "profile": None},
+            scaling_config=ScalingConfig(num_workers=1),
+            run_config=RunConfig(storage_path=os.path.join(root, "results"),
+                                 name="ops_job")).fit()
+        fit_s = time.time() - t0
+    finally:
+        ray_tpu_torch.shutdown()
+    if result.error is not None:
+        raise AssertionError(f"the job's trainer failed: {result.error!r}")
+    m = result.metrics
+    t = m["stamps"]
+    print("JOB_RESULT " + json.dumps({
+        "losses": m["losses"], "launches": m["launches"],
+        "step_ms": m["step_ms"], "warmup_s": t["warm"] - t["built"],
+        "first_step_s": t["warm"] - t0, "fit_s": fit_s,
+        "peak_gib": m["peak_gib"], "visible": m["visible"],
+        "stamps": {"driver": driver_start, "fit": t0, **t},
+        "cuda_in_driver": "torch" in sys.modules
+        and sys.modules["torch"].cuda.is_initialized()}), flush=True)
+    return 0
+
+
+def ops_wait_file(path, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: no {path} in {timeout_s} s")
+        time.sleep(0.1)
+
+
+def client_entry(go, release):
+    """`chip_smoke.py --client-entry GO RELEASE`, the thin client: once
+    the file GO holds the proxy's ray:// address, init() through it, a
+    named actor leasing the GPU, OPS_CALLS calls scoring the rows;
+    prints one CLIENT_RESULT line, then holds the actor until the file
+    RELEASE exists and shuts down. The phase starts it early, so that
+    its imports overlap the job."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    stamps = {"process": process_start_time()}
+    if os.environ.get("CUDA_VISIBLE_DEVICES") != "":
+        raise AssertionError("the client must run with no card visible")
+    cfg = slice_config()
+    rows = ops_rows(cfg)
+    stamps["ready"] = time.time()
+    ops_wait_file(go, 900, "the client")
+    with open(go) as f:
+        address = f.read().strip()
+    stamps["go"] = time.time()
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(address)
+    connect_s = time.perf_counter() - t0
+    actor = ray_tpu_torch.remote(OpsScorer).options(
+        name=OPS_ACTOR, namespace=OPS_NAMESPACE, num_gpus=1).remote(
+        cfg, SEED)
+    t0 = time.perf_counter()
+    pid = ray_tpu_torch.get(actor.ready.remote(), timeout=OPS_START_S)
+    start_s = time.perf_counter() - t0
+    calls = []
+    for _ in range(OPS_CALLS):
+        s = time.perf_counter()
+        out = ray_tpu_torch.get(actor.score.remote(rows),
+                                timeout=OPS_START_S)
+        calls.append({"rtt_s": time.perf_counter() - s,
+                      "numpy": isinstance(out["scores"], np.ndarray),
+                      "scores": out["scores"].tolist(),
+                      "launches": out["launches"]})
+    print("CLIENT_RESULT " + json.dumps({
+        "connect_s": connect_s, "start_s": start_s, "calls": calls,
+        "pid": pid, "stamps": stamps,
+        "client_cuda": torch.cuda.is_available()}), flush=True)
+    ops_wait_file(release, 600, "the client")
+    ray_tpu_torch.shutdown()
+    print("CLIENT_DONE", flush=True)
+    return 0
+
+
+class OpsProc:
+    """A process of phase "ops" (the head, the proxy, the client) whose
+    output (stdout and stderr) a thread reads line by line."""
+
+    def __init__(self, argv, env, what):
+        import queue
+        import subprocess
+        import threading
+        self.what, self.lines = what, []
+        self._queue = queue.Queue()
+        self.proc = subprocess.Popen(
+            argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=env, cwd=REPO)
+        threading.Thread(target=self._read, daemon=True,
+                         name=f"read-{what}").start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+            self._queue.put((time.time(), self.lines[-1]))
+        self._queue.put((time.time(), None))
+
+    def tail(self, n=40):
+        return "\n".join(self.lines[-n:])
+
+    def wait_for(self, prefix, timeout_s):
+        """The first line from now on that starts with `prefix`; `at` is
+        when it came."""
+        import queue
+        deadline = time.monotonic() + timeout_s
+        while True:
+            try:
+                self.at, line = self._queue.get(
+                    timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"{self.what}: no {prefix!r} line in "
+                                     f"{timeout_s} s:\n{self.tail()}")
+            if line is None:
+                raise AssertionError(f"{self.what} exited "
+                                     f"{self.proc.wait()} before a {prefix!r}"
+                                     f" line:\n{self.tail()}")
+            if line.startswith(prefix):
+                return line
+
+    def end(self, timeout_s=60):
+        """SIGTERM, then SIGKILL after `timeout_s`; the exit code."""
+        import subprocess
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                return self.proc.wait(timeout_s)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+        return self.proc.wait()
+
+
+def ops_cli(address, *argv, timeout=300):
+    """`python -m ray_tpu_torch ARGV` with RAY_TPU_ADDRESS set, from the
+    repo root; the completed process."""
+    import subprocess
+    return subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", *argv],
+        capture_output=True, text=True, timeout=timeout, cwd=REPO,
+        env=dict(os.environ, RAY_TPU_ADDRESS=address))
+
+
+def ops_check_cli(out, what):
+    if out.returncode != 0:
+        raise AssertionError(f"`ray_tpu_torch {what}` exited "
+                             f"{out.returncode}:\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    return out.stdout
+
+
+class OpsClock:
+    """Prints each step's time beside its prediction (OPS_PREDICT_S)."""
+
+    def __init__(self, kind, smi):
+        self.kind, self.smi, self.took = kind, smi, {}
+
+    @contextlib.contextmanager
+    def step(self, name):
+        t0 = time.perf_counter()
+        yield
+        self.took[name] = time.perf_counter() - t0
+        print(f"  [{name}] {self.took[name]:.2f} s (predicted "
+              f"{OPS_PREDICT_S[name]:.0f} s); {self.kind}; {self.smi}",
+              flush=True)
+
+
+def ops_direct(torch, cfg, rows):
+    """The phase's own forward of each row alone on the card, from the
+    same seed's weights (its launches are not the path's)."""
+    from ray_tpu_torch.models import Transformer
+    model = Transformer(cfg, seed=SEED)
+    want = [{**score_prompts(torch, model, [r])[0], "tokens": len(r)}
+            for r in rows]
+    del model
+    torch.cuda.empty_cache()
+    return want
+
+
+def ops_get(port, route, timeout=60):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                timeout=timeout) as r:
+        body = r.read()
+    return body if route == "/metrics" else json.loads(body)
+
+
+def run_ops(torch, cfg, tokens, slice_first, kind, smi):
+    """Phase "ops" (the module docstring's phase 16). Returns the
+    launches of each kernel in the job's worker, the client's actor and
+    the workflow's step, summed."""
+    import shlex
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.job import JobSubmissionClient
+    from ray_tpu_torch.util import gpu_profiler
+
+    t0 = time.perf_counter()
+    clock = OpsClock(kind, smi)
+    rows = ops_rows(cfg)
+    want = ops_direct(torch, cfg, rows)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ops_")
+    tokens_path = os.path.join(root, "tokens.npy")
+    np.save(tokens_path, tokens)
+    go, release = os.path.join(root, "go"), os.path.join(root, "release")
+    env = dict(os.environ)
+    env.pop("RAY_TPU_ADDRESS", None)
+    # the head runs with the phase's directory as its TMPDIR, so that the
+    # file `start --head` writes (scripts/cli.py's HEAD_INFO_PATH), the
+    # job's logs and the workers' traces and spill lie there
+    head_file = os.path.join(root, "ray_tpu_head.json")
+    procs, launches, traces = [], {}, []
+    head = head_rc = head_file_left = None
+    try:
+        # (1) the head, through the CLI
+        with clock.step("head"):
+            head = OpsProc([sys.executable, "-m", "ray_tpu_torch", "start",
+                            "--head", "--block", "--num-cpus", str(OPS_CPUS)],
+                           dict(env, TMPDIR=root), "the head")
+            procs.append(head)
+            info = json.loads(head.wait_for("{", 120))
+            address = info["gcs_address"]
+            with open(head_file) as f:
+                if json.load(f)["pid"] != info["pid"]:
+                    raise AssertionError(f"{head_file} names another head")
+            status = ops_check_cli(ops_cli(address, "status"), "status")
+            gpu = re.search(r"^\s*GPU: ([\d.]+) / ([\d.]+) available",
+                            status, re.M)
+            if not (gpu and float(gpu.group(2)) == 1.0):
+                raise AssertionError(f"`status` shows no GPU of 1:\n{status}")
+            ray_tpu_torch.init(address)
+        print(f"  head at {address}; `status`: "
+              f"{' | '.join(status.split(chr(10)))}", flush=True)
+        # the proxy and the client process start now, so that their
+        # interpreters and imports overlap the job; the client waits
+        # for the go file before it connects
+        t_proxy = time.time()
+        proxy = OpsProc([sys.executable, "-m", "ray_tpu_torch",
+                         "client-server", "--host", "127.0.0.1",
+                         "--port", "0"],
+                        dict(env, RAY_TPU_ADDRESS=address), "the proxy")
+        procs.append(proxy)
+        client = OpsProc([sys.executable, "chip_smoke.py", "--client-entry",
+                          go, release], dict(env, CUDA_VISIBLE_DEVICES=""),
+                         "the client")
+        procs.append(client)
+
+        # (2) a training job, then a failing one
+        with clock.step("job"):
+            t_submit = time.time()
+            entry = (f"{shlex.quote(sys.executable)} chip_smoke.py "
+                     f"--job-entry {shlex.quote(tokens_path)} "
+                     f"{shlex.quote(root)}")
+            # the entrypoint as one argument right after "submit": the
+            # CLI joins its words with spaces, and the argparse of some
+            # Python 3.12 releases fills the optional job_id and
+            # entrypoint positionals at "submit" when options follow it,
+            # refusing any word after them
+            out = ops_cli(address, "job", "submit", entry, "--wait",
+                          "--working-dir", REPO, timeout=900)
+            job_out = ops_check_cli(out, "job submit --wait")
+            job_id = re.search(r"^submitted: (\S+)$", job_out, re.M).group(1)
+        status = ops_check_cli(ops_cli(address, "job", "status", job_id),
+                               "job status").strip()
+        logs = ops_check_cli(ops_cli(address, "job", "logs", job_id),
+                             "job logs")
+        listed = ops_check_cli(ops_cli(address, "job", "list"), "job list")
+        if status != "SUCCEEDED" or job_id not in listed:
+            raise AssertionError(f"job {job_id}: status {status!r}; "
+                                 f"`job list`:\n{listed}")
+        lines = [ln for ln in logs.splitlines()
+                 if ln.startswith("JOB_RESULT ")]
+        if not lines:
+            raise AssertionError(f"job {job_id}'s logs hold no JOB_RESULT:"
+                                 f"\n{logs[-3000:]}")
+        job = json.loads(lines[-1][len("JOB_RESULT "):])
+        losses, job_launches = job["losses"], job["launches"]
+        since = {k: round(v - t_submit, 2) for k, v in job["stamps"].items()}
+        print(f"  the job's stamps, seconds after `job submit`: the driver's "
+              f"process {since['driver']}, fit() {since['fit']}, the "
+              f"worker's process {since['process']}, its loop "
+              f"{since['loop']}, NCCL {since['nccl']}, model "
+              f"{since['model']}, state and batch {since['built']}, the "
+              f"first step's end {since['warm']}, the last's "
+              f"{since['timed']}", flush=True)
+        print(f"  job {job_id}: {status}; submit to SUCCEEDED "
+              f"{clock.took['job']:.2f} s (fit() {job['fit_s']:.2f} s, to "
+              f"the end of its first step {job['first_step_s']:.2f} s); "
+              f"losses {['%.4f' % x for x in losses]}; step "
+              f"{job['step_ms']:.2f} ms over {TIMED} steps, the "
+              f"first {job['warmup_s'] * 1e3:.1f} ms; peak memory "
+              f"{job['peak_gib']:.2f} GiB; launches {job_launches}; "
+              f"{kind}; {smi}", flush=True)
+        if job["cuda_in_driver"]:
+            raise AssertionError("the job's driver initialized CUDA")
+        if len(losses) != WARMUP + TIMED or not all(
+                math.isfinite(x) for x in losses):
+            raise AssertionError(f"job losses {losses}")
+        if abs(losses[0] - slice_first) > 2e-2:
+            raise AssertionError(f"the job's first loss {losses[0]} is not "
+                                 f"the slice's {slice_first}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"the job's loss does not fall: {losses}")
+        step_want = cfg.n_layers * (WARMUP + TIMED)
+        if job_launches != {n: step_want for n in job_launches}:
+            raise AssertionError(f"job: expected {cfg.n_layers} launches of "
+                                 f"each kernel a step, got {job_launches}")
+        launches = dict(job_launches)
+        with clock.step("failed job"):
+            out = ops_cli(address, "job", "submit",
+                          f"{shlex.quote(sys.executable)} -c "
+                          f"'raise SystemExit(3)'", "--wait")
+            bad_id = re.search(r"^submitted: (\S+)$", out.stdout,
+                               re.M).group(1)
+        bad = JobSubmissionClient(address)._kv_get(bad_id, "status")
+        if out.returncode != 1 or bad["status"] != "FAILED" \
+                or bad["message"] != "exit code 3":
+            raise AssertionError(f"the failing job: `job submit --wait` "
+                                 f"exited {out.returncode}, status {bad}")
+        print(f"  job {bad_id}: {bad['status']} ({bad['message']}), "
+              f"`job submit --wait` exited 1 after "
+              f"{clock.took['failed job']:.2f} s; {kind}; {smi}", flush=True)
+
+        # (3) a thin client through the proxy, holding the card's actor
+        with clock.step("client"):
+            url = proxy.wait_for("client proxy listening on ",
+                                 120).rsplit(" ", 1)[1]
+            proxy_up = proxy.at
+            with open(go + ".tmp", "w") as f:
+                f.write(url)
+            os.replace(go + ".tmp", go)
+            got = json.loads(client.wait_for("CLIENT_RESULT ", 600)[
+                len("CLIENT_RESULT "):])
+        rtt = [c["rtt_s"] for c in got["calls"]]
+        p50, p99 = percentiles(rtt)
+        worst = 0.0
+        before = {n: 0 for n in launches}
+        for i, call in enumerate(got["calls"]):
+            w, _ = check_scores(array_scores(call["scores"]), want,
+                                f"client call {i}")
+            worst = max(worst, w)
+            step = {n: call["launches"][n] - before[n] for n in before}
+            before = call["launches"]
+            if step != {"flash_fwd": cfg.n_layers, "flash_bwd_dkv": 0,
+                        "flash_bwd_dq": 0} or not call["numpy"]:
+                raise AssertionError(f"client call {i}: launches {step}, "
+                                     f"numpy {call['numpy']}")
+        if got["client_cuda"]:
+            raise AssertionError("the client process sees a card")
+        warm50, warm99 = percentiles(rtt[1:])
+        cs = got["stamps"]
+        print(f"  client at {url}: the proxy's process up "
+              f"{proxy_up - t_proxy:.2f} s, the client's imports done "
+              f"{cs['ready'] - cs['process']:.2f} s after its process "
+              f"started (both during the job); after the go: init "
+              f"{got['connect_s']:.2f} s, the actor's start "
+              f"{got['start_s']:.2f} s, {OPS_CALLS} calls of [{OPS_ROWS}, "
+              f"{cfg.max_seq_len}]: round trip p50 {p50 * 1e3:.1f} ms p99 "
+              f"{p99 * 1e3:.1f} ms ("
+              f"{', '.join('%.1f' % (x * 1e3) for x in rtt)} ms; the first "
+              f"is the actor's first forward; the rest p50 "
+              f"{warm50 * 1e3:.1f} ms p99 {warm99 * 1e3:.1f} ms); worst "
+              f"|error| a token {worst:.3g}; {kind}; {smi}", flush=True)
+
+        # (4) the dashboard, while the client's actor lives
+        with clock.step("dashboard"):
+            dash = start_dashboard(port=0)
+            port = ray_tpu_torch.get(dash.ready.remote(), timeout=60)
+            cluster = ops_get(port, "/api/cluster")
+            jobs = ops_get(port, "/api/jobs")
+            actors = ops_get(port, "/api/actors")
+            metrics = ops_get(port, "/metrics").decode()
+            scorer = ray_tpu_torch.get_actor(OPS_ACTOR,
+                                             namespace=OPS_NAMESPACE)
+            pid = ray_tpu_torch.get(scorer.start_loop.remote(
+                rows, OPS_LOOP_PAUSE_S), timeout=60)
+            deadline = time.monotonic() + 120
+            while ray_tpu_torch.get(scorer.loop_forwards.remote(),
+                                    timeout=60) < 1:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the actor's loop never ran")
+                time.sleep(0.2)
+            t1 = time.perf_counter()
+            prof = ops_get(port, f"/api/profile?device=1&duration="
+                                 f"{OPS_PROFILE_S:g}", timeout=300)
+            prof_s = time.perf_counter() - t1
+            loop = ray_tpu_torch.get(scorer.stop_loop.remote(), timeout=120)
+            traces = [p["xplane_dir"] for p in prof["profiles"]
+                      if p.get("xplane_dir")]
+            mine = [p for p in prof["profiles"] if p["pid"] == pid]
+            entry = mine[0] if mine else {}
+            remote = {"kernels": {}}
+            if entry.get("xplane_dir"):
+                remote = gpu_profiler.summary(gpu_profiler.latest_trace_dir(
+                    entry["xplane_dir"]))
+            fwd = sum(r["count"] for k, r in remote["kernels"].items()
+                      if traced_as(k, "flash_fwd"))
+            ray_tpu_torch.get(dash.stop.remote(), timeout=30)
+            ray_tpu_torch.kill(dash)
+        if cluster["resources_total"].get("GPU") != 1.0:
+            raise AssertionError(f"/api/cluster: {cluster}")
+        if not any(j["job_id"] == job_id and j["status"] == "SUCCEEDED"
+                   for j in jobs):
+            raise AssertionError(f"/api/jobs: {jobs}")
+        if not any(a["class_name"] == "OpsScorer" and a["state"] == "ALIVE"
+                   for a in actors):
+            raise AssertionError(f"/api/actors: {actors}")
+        series = {ln.split("{")[0].split()[0] for ln in metrics.splitlines()
+                  if ln.startswith("ray_tpu_")}
+        if not series:
+            raise AssertionError(f"/metrics: {metrics[:2000]}")
+        if not (entry.get("xplane_dir") and fwd > 0
+                and kind in entry.get("devices", ())):
+            seen = [{k: p.get(k) for k in ("pid", "label", "skipped",
+                                           "error", "xplane_dir")}
+                    for p in prof["profiles"]]
+            raise AssertionError(f"/api/profile?device=1: the actor (pid "
+                                 f"{pid}) has the entry {entry} and "
+                                 f"{fwd} forward launches in its trace; "
+                                 f"the entries {seen}, unreachable "
+                                 f"{prof.get('unreachable')}")
+        actor_launches = loop["launches"]
+        want_actor = {"flash_fwd": cfg.n_layers * (
+            OPS_CALLS + loop["forwards"]), "flash_bwd_dkv": 0,
+            "flash_bwd_dq": 0}
+        if actor_launches != want_actor:
+            raise AssertionError(f"the client's actor: launches "
+                                 f"{actor_launches}, want {want_actor}")
+        for name, n in actor_launches.items():
+            launches[name] += n
+        print(f"  dashboard on {port}: /api/cluster GPU "
+              f"{cluster['resources_total']['GPU']:g}, /api/jobs "
+              f"{len(jobs)} jobs, /api/actors {len(actors)}, /metrics "
+              f"{len(series)} ray_tpu_ series; /api/profile?device=1 over "
+              f"{OPS_PROFILE_S:g} s, answered in {prof_s:.2f} s: the "
+              f"actor's trace holds {fwd} forward launches (the loop ran "
+              f"{loop['forwards']} forwards, {OPS_LOOP_PAUSE_S:g} s apart);"
+              f" {kind}; {smi}", flush=True)
+
+        # the client lets go: disconnect kills its actor, which held the
+        # card's one GPU until then
+        held = ray_tpu_torch.available_resources().get("GPU", 0)
+        if held != 0:
+            raise AssertionError(f"the client's actor holds no GPU: {held} "
+                                 f"available")
+        open(release, "w").close()
+        client.wait_for("CLIENT_DONE", 120)
+        if client.proc.wait(60) != 0:
+            raise AssertionError(f"the client exited {client.proc.wait()}:"
+                                 f"\n{client.tail()}")
+        t1 = time.perf_counter()
+        while ray_tpu_torch.available_resources().get("GPU", 0) < 1:
+            if time.perf_counter() - t1 > OPS_FREE_S:
+                raise AssertionError(
+                    f"the client's shutdown() left the GPU leased: "
+                    f"{ray_tpu_torch.available_resources()}")
+            time.sleep(0.2)
+        print(f"  the GPU free {time.perf_counter() - t1:.2f} s after the "
+              f"client's shutdown(); {kind}; {smi}", flush=True)
+
+        # (5) a durable workflow: a GPU step under a CPU step
+        storage = os.path.join(root, "workflows")
+        marker = os.path.join(root, "score_runs")
+        score = ray_tpu_torch.remote(num_gpus=1)(ops_score_step)
+        summarize = ray_tpu_torch.remote(ops_summarize_step)
+        with clock.step("workflow"):
+            wf = workflow.run(summarize.bind(score.bind(cfg, rows, marker)),
+                              workflow_id="ops_score", storage=storage)
+        with clock.step("resume"):
+            again = workflow.resume(
+                summarize.bind(score.bind(cfg, rows, marker)),
+                workflow_id="ops_score", storage=storage)
+        wf_worst, _ = check_scores(array_scores(wf["scores"]), want,
+                                   "workflow row")
+        with open(marker) as f:
+            runs = len(f.read())
+        if runs != 1 or not np.array_equal(again["scores"], wf["scores"]) \
+                or again["mean_logprob"] != wf["mean_logprob"]:
+            raise AssertionError(f"resume: the step ran {runs} times, or "
+                                 f"its output changed")
+        if wf["launches"] != {"flash_fwd": cfg.n_layers, "flash_bwd_dkv": 0,
+                              "flash_bwd_dq": 0}:
+            raise AssertionError(f"workflow step: launches {wf['launches']}")
+        for name, n in wf["launches"].items():
+            launches[name] += n
+        print(f"  workflow: run {clock.took['workflow']:.2f} s, resume "
+              f"{clock.took['resume'] * 1e3:.1f} ms (the step ran {runs} "
+              f"time); the rows' mean log-prob {wf['mean_logprob']:.4f}; "
+              f"worst |error| a token {wf_worst:.3g}; launches "
+              f"{wf['launches']}; {kind}; "
+              f"{smi}", flush=True)
+
+        # (6) the CLI's views
+        from concurrent.futures import ThreadPoolExecutor
+        timeline = os.path.join(root, "timeline.json")
+        views = [("list", "actors"), ("list", "tasks"), ("summary",),
+                 ("timeline", "-o", timeline), ("memory",), ("goodput",),
+                 ("job", "list")]
+        with clock.step("views"):
+            with ThreadPoolExecutor(len(views)) as pool:
+                outs = list(pool.map(lambda v: ops_cli(address, *v), views))
+        for view, out in zip(views, outs):
+            ops_check_cli(out, " ".join(view))
+        with open(timeline) as f:
+            events = json.load(f)
+        if not events:
+            raise AssertionError("`timeline` wrote an empty trace")
+        print(f"  views: {', '.join(' '.join(v[:2]) for v in views)} exit 0"
+              f" in {clock.took['views']:.2f} s together; the timeline holds "
+              f"{len(events)} events; {kind}; {smi}", flush=True)
+    finally:
+        ray_tpu_torch.shutdown()
+        with contextlib.suppress(OSError):
+            open(release, "w").close()
+        if head is not None:
+            with clock.step("teardown"):
+                for p in procs[1:]:
+                    p.end(30)
+                head_rc = head.end(120)
+            head_file_left = os.path.exists(head_file)
+            print(f"  the head exited {head_rc} on SIGTERM after "
+                  f"{clock.took['teardown']:.2f} s, its file "
+                  f"{'left' if head_file_left else 'removed'}; {kind}; "
+                  f"{smi}", flush=True)
+        for path in traces:
+            shutil.rmtree(path, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+    if head_rc != 0:
+        raise AssertionError(f"the head exited {head_rc}:\n{head.tail()}")
+    if head_file_left:
+        raise AssertionError(f"the head left {head_file} behind")
+    total = time.perf_counter() - t0
+    print(f"  phase {total:.1f} s (predicted "
+          f"{sum(OPS_PREDICT_S.values()):.0f} s); {kind}; {smi}", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

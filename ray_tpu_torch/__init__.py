@@ -11,9 +11,12 @@ groups: a copy of ray_tpu's, with a GPU accelerator manager), Ray
 Train's TorchTrainer over an NCCL (gloo on the CPU) process group fed by
 Ray Data (data/), Tune over trainers and algorithms (tune/), host-RAM
 collectives (util/collective.py), RLlib (rllib/: the learners on the
-card, CPU EnvRunner actors), and Serve (serve/: deployments, @serve.batch,
+card, CPU EnvRunner actors), Serve (serve/: deployments, @serve.batch,
 the HTTP/gRPC ingress fleet) with the lazy task graphs (dag/) and trace
-propagation (util/tracing.py).
+propagation (util/tracing.py), and the operator surfaces: the thin client
+(client/, init("ray://...")), job submission (job/), the CLI
+(scripts/cli.py, ``python -m ray_tpu_torch``), the dashboard (dashboard/)
+and durable workflows (workflow/).
 Importing this package imports no torch: the runtime is framework-free.
 Entry points run on the card unless the caller names another device
 (``device="cpu"``, ``ScalingConfig(use_gpu=False)``), and raise when

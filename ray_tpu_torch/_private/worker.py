@@ -178,11 +178,17 @@ def init(address: Optional[str] = None, *,
     """Connect this process as a driver; bootstrap a head if no address."""
     global _global_worker
     if address is not None and address.startswith("ray://"):
-        # client mode (reference ray.init("ray://...")) needs the client
-        # server, which is not copied yet
-        raise NotImplementedError(
-            "client mode (ray://) is not ported yet (ROADMAP.md, Queue 1: "
-            "client)")
+        # client mode (reference ray.init("ray://...")): no local core
+        # worker; everything proxies through the cluster-side server
+        from ray_tpu_torch.client.worker import connect
+        if _client_context is not None:
+            if ignore_reinit_error:
+                return _client_context
+            raise RuntimeError("already connected in client mode")
+        ctx = connect(address[len("ray://"):])
+        ctx.namespace = namespace  # default for get_actor lookups
+        set_client_context(ctx)
+        return ctx
     if _global_worker is not None:
         if ignore_reinit_error:
             return _global_worker

@@ -2,11 +2,14 @@
 test_torch_seq_parallel.py, test_torch_moe.py, test_torch_pipeline.py,
 test_torch_multislice.py).
 
-    python tests/_torch_sharded_workers.py JOB INPUT RANK WORLD PORT OUTPUT
+    python tests/_torch_sharded_workers.py JOB INPUT RANK WORLD RENDEZVOUS OUTPUT
 
 Each process is one rank of a CPU process group. INPUT is a pickle of
 numpy data (JAX Transformer.init params, batches) written by the test;
-rank 0 pickles what JOB returns to OUTPUT. The module imports torch and
+rank 0 pickles what JOB returns to OUTPUT. Rank 0's store listens on a
+port the kernel picks and writes it to the file RENDEZVOUS, where the
+other ranks read it: a free port picked before the bind could be taken
+by another process in between. The module imports torch and
 the port only, never jax, so a rank starts in a few seconds. `start`
 launches the ranks from a test and `Ranks.result` waits for them; a
 collective that waits longer than COLLECTIVE_TIMEOUT_S raises in its
@@ -478,23 +481,49 @@ class Ranks:
 
 def start(job: str, data, world: int, tmp: str) -> Ranks:
     """Launch JOB on `world` gloo ranks, each a fresh process."""
-    from ray_tpu_torch._private.rpc import find_free_port
     inp = os.path.join(tmp, f"{job}.in")
     out = os.path.join(tmp, f"{job}.out")
     with open(inp, "wb") as f:
         pickle.dump(data, f)
+    rendezvous = os.path.join(tmp, f"{job}.port")
+    if os.path.exists(rendezvous):
+        os.unlink(rendezvous)
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
-    port = str(find_free_port())
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), job, inp, str(r),
-         str(world), port, out], cwd=REPO, env=env, text=True,
+         str(world), rendezvous, out], cwd=REPO, env=env, text=True,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(world)]
     return Ranks(procs, out)
 
 
+def _store(rendezvous: str, rank: int, world: int):
+    """The group's TCPStore: rank 0 listens on a port the kernel picks
+    and writes it to `rendezvous`; the other ranks read it there."""
+    import time
+
+    import torch.distributed as dist
+    timeout = datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
+    if rank == 0:
+        store = dist.TCPStore("127.0.0.1", 0, world, is_master=True,
+                              timeout=timeout, wait_for_workers=False)
+        with open(rendezvous + ".tmp", "w") as f:
+            f.write(str(store.port))
+        os.replace(rendezvous + ".tmp", rendezvous)
+        return store
+    deadline = time.monotonic() + COLLECTIVE_TIMEOUT_S
+    while not os.path.exists(rendezvous):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"rank 0 wrote no port to {rendezvous}")
+        time.sleep(0.05)
+    with open(rendezvous) as f:
+        port = int(f.read())
+    return dist.TCPStore("127.0.0.1", port, world, is_master=False,
+                         timeout=timeout)
+
+
 def main(argv):
-    job, inp, rank, world, port, out = argv
+    job, inp, rank, world, rendezvous, out = argv
     rank, world = int(rank), int(world)
     import torch
     import torch.distributed as dist
@@ -502,7 +531,7 @@ def main(argv):
     with open(inp, "rb") as f:
         data = pickle.load(f)
     dist.init_process_group(
-        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        "gloo", store=_store(rendezvous, rank, world), rank=rank,
         world_size=world,
         timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     try:

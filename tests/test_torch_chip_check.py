@@ -5,7 +5,10 @@ V tile from the product while keeping its keys in the softmax sum. dq's
 query row 0, zero in exact arithmetic, is held to its rounding bound:
 a dQ summed as the kernel sums it passes at any seed, and ordinary values
 planted on that row fail. Phase "serve"'s scoring gives a padded prompt
-its own forward's answer, and its bars accept and reject as stated."""
+its own forward's answer, and its bars accept and reject as stated.
+Phase "ops"'s answers keep their values through the numpy form they
+cross the thin client's proxy in, and its process reader finds a line,
+fails on an early exit and ends a process with SIGTERM."""
 
 import importlib.util
 from pathlib import Path
@@ -182,3 +185,43 @@ def test_serve_check_scores_bars():
     near = dict(want, gap=0.5 * chip_smoke.SERVE_GAP)
     assert chip_smoke.check_scores([dict(want, next_token=8)], [near],
                                    "t")[1] == 0
+
+
+def test_ops_scores_survive_their_numpy_form():
+    """Phase "ops": score_array's [rows, 3] float64 form, read back by
+    array_scores, gives the answers check_scores held before."""
+    model = _serve_model()
+    rng = np.random.default_rng(1)
+    rows = rng.integers(0, 256, (3, 24))
+    direct = [{**chip_smoke.score_prompts(torch, model, [r])[0],
+               "tokens": len(r)} for r in rows]
+    arr = chip_smoke.score_array(chip_smoke.score_prompts(torch, model,
+                                                          list(rows)))
+    assert arr.shape == (3, 3) and arr.dtype == np.float64
+    back = chip_smoke.array_scores(arr)
+    assert [b["next_token"] for b in back] == \
+        [d["next_token"] for d in direct]
+    worst, _ = chip_smoke.check_scores(back, direct, "row")
+    assert worst <= 1e-5
+
+
+def test_ops_process_reader(tmp_path):
+    """OpsProc: wait_for returns the first line with the prefix and when
+    it came, raises when the process exits first, and end() stops a
+    process with SIGTERM."""
+    import signal
+    import sys
+    import time
+
+    code = ("import sys, time\nprint('noise', flush=True)\n"
+            "print('READY 7', flush=True)\ntime.sleep(60)\n")
+    proc = chip_smoke.OpsProc([sys.executable, "-c", code], None, "sleeper")
+    t0 = time.time()
+    assert proc.wait_for("READY", 60) == "READY 7"
+    assert t0 <= proc.at <= time.time()
+    assert proc.end(30) == -signal.SIGTERM
+    quick = chip_smoke.OpsProc([sys.executable, "-c", "print('bye')"], None,
+                               "quick")
+    with pytest.raises(AssertionError, match="exited 0"):
+        quick.wait_for("READY", 60)
+

@@ -9,6 +9,7 @@ for the module, with RAY_TPU_FAKE_NUM_GPUS=2 so that its node reports
 two GPUs through the GPU manager; nothing here touches CUDA.
 """
 
+import ast
 import os
 import re
 import time
@@ -26,14 +27,34 @@ from ray_tpu_torch._private.accelerators.nvidia_gpu import (
 REPO = Path(__file__).resolve().parent.parent
 
 # The rename rule: imports and strings that name the JAX package's
-# modules name the port's. Environment variables (RAY_TPU_*), session
-# directory prefixes and CLI names (`ray_tpu logs`) stay as they are.
+# modules name the port's, and so does a bare use of the module object
+# that `import ray_tpu` bound (`return ray_tpu`). Environment variables
+# (RAY_TPU_*), session directory prefixes and CLI names (`ray_tpu logs`)
+# stay as they are.
 def rename(src: str) -> str:
     src = re.sub(r"\bray_tpu\.", "ray_tpu_torch.", src)
     src = re.sub(r"\bfrom ray_tpu import\b", "from ray_tpu_torch import",
                  src)
-    return re.sub(r"\bimport ray_tpu\b(?![.\w])", "import ray_tpu_torch",
-                  src)
+    src = re.sub(r"\bimport ray_tpu\b(?![.\w])", "import ray_tpu_torch",
+                 src)
+    lines = src.split("\n")
+    # right to left, so that an edit leaves the next site's column valid
+    for lineno, col in sorted(bare_module_names(src), reverse=True):
+        line = lines[lineno - 1].encode()  # ast columns count utf-8 bytes
+        lines[lineno - 1] = (line[:col] + b"ray_tpu_torch"
+                             + line[col + len("ray_tpu"):]).decode()
+    return "\n".join(lines)
+
+
+def bare_module_names(src: str) -> list:
+    """(line, column) of each `ray_tpu` that the source uses as a value
+    of its own: a name that is not the object of an attribute access."""
+    tree = ast.parse(src)
+    objects = {id(n.value) for n in ast.walk(tree)
+               if isinstance(n, ast.Attribute)}
+    return [(n.lineno, n.col_offset) for n in ast.walk(tree)
+            if isinstance(n, ast.Name) and n.id == "ray_tpu"
+            and id(n) not in objects]
 
 
 # every module the port copies without an edit (paths under both
@@ -95,13 +116,19 @@ VERBATIM = [
     "serve/_private/proxy_fleet/proxy.py",
     "serve/_private/proxy_fleet/fleet.py",
     "serve/_private/proxy_fleet/__init__.py", "serve/__init__.py",
-    "cluster_utils.py",
+    "cluster_utils.py", "_private/worker.py",
+    "job/manager.py", "job/__init__.py", "client/worker.py",
+    "client/server.py", "client/__init__.py", "workflow/__init__.py",
+    "dashboard/metrics.py", "dashboard/head.py", "dashboard/__init__.py",
+    "scripts/__init__.py", "scripts/cli.py", "__main__.py",
 ]
 
 # the lines a copy repairs (reference text -> the port's), each a fault of
 # the reference that the port fixes in its copy only: the transition
 # ring's lock is reentrant (a garbage collection inside record() can run
-# an ObjectRef.__del__ that records on the same thread)
+# an ObjectRef.__del__ that records on the same thread); the CLI's head
+# file lies under TMPDIR, not at a path every checkout shares, and goes
+# with its head (test_torch_ops_tooling.py's test_head_file_*)
 REPAIRED = {
     "_private/ownership.py": [(
         "        self._lock = threading.Lock()\n",
@@ -109,6 +136,27 @@ REPAIRED = {
         "        # ObjectRef.__del__ whose release records a transition on this\n"
         "        # same thread (decr_local -> transition -> record)\n"
         "        self._lock = threading.RLock()\n")],
+    "scripts/cli.py": [
+        ("import signal\nimport sys\n",
+         "import signal\nimport sys\nimport tempfile\n"),
+        ('HEAD_INFO_PATH = "/tmp/ray_tpu_head.json"\n',
+         "# under TMPDIR (/tmp when it is unset), so that heads run with "
+         "TMPDIRs of\n"
+         "# their own do not share one file\n"
+         'HEAD_INFO_PATH = os.path.join(tempfile.gettempdir(), '
+         '"ray_tpu_head.json")\n'),
+        ("        head.shutdown()\n        return 0\n",
+         "        head.shutdown()\n"
+         "        # the file goes with its head: a later `stop` would signal "
+         "its\n"
+         "        # pid, which another process may hold by then\n"
+         "        try:\n"
+         "            with open(HEAD_INFO_PATH) as f:\n"
+         "                if json.load(f).get(\"pid\") == info[\"pid\"]:\n"
+         "                    os.unlink(HEAD_INFO_PATH)\n"
+         "        except (OSError, ValueError):\n"
+         "            pass\n"
+         "        return 0\n")],
 }
 
 
@@ -123,11 +171,29 @@ def test_copy_equals_reference_under_the_rename_rule(path):
     assert port == want
 
 
+def test_rename_rule_leaves_no_bare_module_name():
+    """The reference uses the module object bare in three places, each
+    renamed by the rule; no renamed module and no module of the port
+    keeps one."""
+    sites = sorted(
+        (str(p.relative_to(REPO)), lineno)
+        for p in (REPO / "ray_tpu").rglob("*.py")
+        for lineno, _col in bare_module_names(p.read_text()))
+    assert sites == [("ray_tpu/client/server.py", 25),
+                     ("ray_tpu/job/manager.py", 90),
+                     ("ray_tpu/scripts/cli.py", 38)]
+    for p in (REPO / "ray_tpu").rglob("*.py"):
+        assert bare_module_names(rename(p.read_text())) == [], p
+    for p in (REPO / "ray_tpu_torch").rglob("*.py"):
+        assert bare_module_names(p.read_text()) == [], p
+    assert "self._rt = ray_tpu_torch\n" in rename(
+        (REPO / "ray_tpu/client/server.py").read_text())
+
+
 def _function_source(path, qualname):
     """The source lines of function `qualname` ("Class.method" or
     "function") in the module at `path` (under the rename rule when the
     module is the JAX package's)."""
-    import ast
     src = (REPO / path).read_text()
     if path.startswith("ray_tpu/"):
         src = rename(src)
@@ -258,10 +324,9 @@ def test_placement_group(cluster):
     remove_placement_group(pg)
 
 
-def test_unported_libraries_raise_naming_roadmap(cluster):
-    """The client (ray://) is not ported and raises naming ROADMAP.md;
-    the lazy graphs and the fleet view are: f.bind() is a FunctionNode,
-    and with Serve not running the fleet view says so."""
+def test_lazy_graphs_and_fleet_view_without_serve(cluster):
+    """The lazy graphs and the fleet view: f.bind() is a FunctionNode
+    that executes, and with Serve not running the fleet view says so."""
     @ray_tpu_torch.remote
     def f():
         return 1
@@ -270,8 +335,6 @@ def test_unported_libraries_raise_naming_roadmap(cluster):
     node = f.bind()
     assert isinstance(node, FunctionNode)
     assert ray_tpu_torch.get(node.execute(), timeout=60) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ray_tpu_torch.init("ray://localhost:1")
     from ray_tpu_torch.util import state
     assert state.serve_fleet() == {"enabled": False, "proxies": []}
 

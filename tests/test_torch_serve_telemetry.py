@@ -6,9 +6,9 @@ gRPC ingress's trace metadata, shedding with Retry-After and rate
 limiting.
 
 Mirrors of tests/test_serve_telemetry.py's functional cases on
-ray_tpu_torch, with their assertions but for the `ray_tpu serve
-requests` CLI calls (the CLI is not ported), and of
-tests/test_proxy_fleet.py's two admission cases. Left out: the trace through
+ray_tpu_torch, with their assertions and their `ray_tpu serve requests`
+CLI calls (scripts.cli.main), and of tests/test_proxy_fleet.py's two
+admission cases. Left out: the trace through
 nested replicas into the merged timeline, the SLO watchdog under chaos
 and the telemetry overhead bar, whose bars are timings of a loaded box
 (CHANGES.md). One cluster for the module (ray_tpu_torch.init(num_cpus=4)).
@@ -87,7 +87,8 @@ def test_red_metrics_and_queue_gauges_on_merged_endpoint(serve_session):
 def test_error_semantics_and_request_ring(serve_session):
     """Satellite: unknown deployment → 404, handler exception → 500,
     configured timeout → 504 — each still recording trace + metrics —
-    and the ring's --errors/--slowest/--deployment query surface."""
+    and the ring's --errors/--slowest/--deployment query surface plus
+    the `ray_tpu serve requests` CLI."""
 
     @serve.deployment(name="tele_flaky")
     def flaky(x=0):
@@ -137,6 +138,13 @@ def test_error_semantics_and_request_ring(serve_session):
                    for l in text.splitlines()
                    if l.startswith("ray_tpu_serve_requests_total"))
 
+        # CLI: text table + json
+        from ray_tpu_torch.scripts.cli import main as cli_main
+        addr = ray_tpu_torch.get_gcs_address()
+        assert cli_main(["serve", "requests", "--address", addr,
+                         "--errors", "--format", "json"]) == 0
+        assert cli_main(["serve", "requests", "--address", addr,
+                         "--slowest", "3"]) == 0
     finally:
         ray_tpu_torch.kill(proxy)
 
