@@ -92,7 +92,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      pageable .to() of the same batch and one pinned copy of as many
      bytes; (3) ImpalaConfig().build() with
      the learner local on the card and R CPU EnvRunner actors,
-     algo.train() for 30 s of wall time, then the learner drained: the
+     algo.train() for IMPALA_S of wall time, then the learner drained: the
      params on CUDA, no runner with CUDA initialised and each on one
      thread, updates > 0, env steps trained = 500 x updates, the queue
      within its bound, R healthy runners, every batch shipped and
@@ -100,7 +100,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      learner's weights after a last sync; env steps sampled and trained
      a second, updates a second, the learner's busy share, the feed's
      stats and the peak device memory printed; (4) APPO the same way for
-     15 s, mean_ratio within (0.2, 5); (5) IMPALA CartPole at
+     APPO_S, mean_ratio within (0.2, 5); (5) IMPALA CartPole at
      tests/test_rllib.py:139's config with the learner on the card, seeds
      0-4: 150 within 250 iterations in all of them
      (IMPALA_CARTPOLE_SEEDS says why). The path launches none of the
@@ -181,8 +181,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      8, 9 and 10 take (3)'s interleave on their own paths (the PPO
      learner's update, the IMPALA and APPO learners' updates, the Llama
      step, and the ring, Ulysses, MoE and pipeline steps), COST_CALLS
-     calls each; the Llama step is held to the same bar, the others
-     printed.
+     calls each on the Llama step, which is held to the same bar, and
+     PRINTED_COST_CALLS on the others, which are printed.
  12. offpolicy: RLlib's off-policy family on the card, f32 with TF32 off,
      at the JAX package's own widths and sizes. (1) DQN's (64, 64)
      dueling double-Q learner, SAC's and TD3's (128, 128) learners on
@@ -199,8 +199,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      equal to FORCED_BYTES. (3) The same with prioritized replay, 30
      iterations after learning starts: the priorities move. (4) SAC,
      TD3 and DDPG on Pendulum-v1 (Pendulum, registered here: the card's
-     machine has no gymnasium) at the JAX learning tests' settings, 30,
-     30 and 5 iterations after learning starts: finite stats, the
+     machine has no gymnasium) at the JAX learning tests' settings,
+     CONTINUOUS_ITERS iterations after learning starts: finite stats, the
      runner on the CPU, FORCED_BYTES an update. (5) ray_tpu_torch.init()
      and DQN through the replay plane for REPLAY_S: 2 runner actors, 2
      prioritized shards of 25,000, batch 32; priority updates reach the
@@ -331,6 +331,63 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the machine.
      launches_by_path "ops" sums the job's worker, the client's actor and
      the workflow's step.
+ 17. elastic: the elastic path (run_elastic). (1) tests/test_elastic.py:
+     535-745's drill at the slice's model: a cluster_utils.Cluster head
+     with {"GPU": 1, "trainslot": 1} and ELASTIC_CPUS CPUs, AutoscalerV2
+     over a LocalNodeProvider whose replacement boots once the gang has
+     run ELASTIC_DEGRADED_STEPS steps at world 1 (node type
+     {"trainslot": 1, "CPU": 1, "GPU": 1},
+     max_nodes 2), and TorchTrainer(elastic_loop) with
+     ScalingConfig(num_workers=2, use_gpu=True, resources_per_worker=
+     {"trainslot": 1, "GPU": 0.5}, elastic_min_workers=1,
+     elastic_reform_timeout_s=15) and TorchConfig(backend="gloo") (NCCL
+     takes no two ranks on one card; the loop runs no collective). Each
+     rank trains phase 5's model from SEED with AdamW(1e-4, wd 0.01) on
+     rows rank::world of phase 5's 16 x 1,025 tokens (8 rows at world 2,
+     16 at world 1); rank 0 saves params, AdamW's state and the step with
+     torch.save every ELASTIC_CKPT_EVERY steps, and after each step its
+     params' loss on all 16 rows; a resumed gang loads the checkpoint on
+     every rank. World 2 once the autoscaler's node joins; then a chaos
+     kill_worker of that node's RayTrainWorker and a partition of the
+     node, then the host's end through the provider once the kill has
+     landed (the partition alone leaves the node alive: ROADMAP Queue 3,
+     shown by tests/test_torch_elastic.py's
+     test_two_way_partition_leaves_the_node_alive): the gang resumes at world 1 from the checkpoint; the
+     autoscaler replaces the node and the gang grows back to 2; a stop
+     file ends the run. Checks (check_elastic_records and after): worlds
+     2 -> 1 -> 2, one fresh start, a re-run step; resumed params and
+     AdamW state equal to the checkpoint's bit for bit, AdamW's step the
+     resume step; rank 0's loss on the 16 rows: the first ln(50304) +/-
+     0.5, falling, and each resume step's (its first step, run again)
+     within ELASTIC_RERUN_FRAC of the first loss over its runs; 12
+     launches of each kernel in every rank-step (and 12 forward ones in
+     rank 0's loss on the 16 rows); >= 2 of each
+     elastic.drain/.checkpoint/.reform/.reshard/.resume span and an
+     elastic.detect; worker_death and scale_up reconfigurations; the
+     autoscaler's instances TERMINATED and RAY_RUNNING, as
+     `python -m ray_tpu_torch autoscaler` prints them; the card's memory
+     back within ELASTIC_FREE_GIB of this process's own within
+     ELASTIC_FREE_S of teardown. Prints the seconds from the kill to the
+     first world-1 step and from the replacement's RAY_RUNNING to the
+     first world-2 step, the step's median ms at each world, torch.save
+     and load seconds, each rank's peak memory and the card's peak in
+     use. (2) tests/test_elastic.py:369-406 at phase 7's PPO learner
+     (the Nature CNN, phase 7 (1)'s 5,000-row batch, one Adam step an
+     update): LearnerGroup(num_learners=1, elastic_min_learners=1), one
+     NCCL rank on the card; an update, a kill of the rank, an update
+     (re-formed at 1, Adam's step 2), reconfigure(1, "scale_down") and an
+     update (step 3, reconfigs_total 2), then chaos stall_worker SIGSTOPs
+     the rank under a step deadline of ELASTIC_WEDGE_DEADLINE_S
+     (tests/test_wedge.py:321): GangWedgedError re-forms the gang and the
+     update goes on (step 4, reasons worker_death, scale_down, wedge).
+     After each update the gang's stats and weights against a local card
+     learner's that took the same updates, within GANG_BARS (cuDNN
+     deterministic in both). The path launches no flash kernel: none in
+     this process, and none in any rank, by the count each rank's
+     update returns. Part 2 runs in a process of its own (this script
+     with --elastic-learners), beside part 1, with a cluster of its own.
+     launches_by_path "elastic" sums part 1's rank-steps and rank 0's
+     evaluations.
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -412,8 +469,11 @@ SENTINEL_COST = 1.02      # installed median / uninstalled median, at most
 # the same interleave on the other paths: calls of each step or update
 # with the sentinel installed and as many with it off. The bar holds on
 # the GPT-2 and Llama steps; on the rest the host's noise moves the
-# medians more than it (PERF.md §6), and they are printed.
+# medians more than it (PERF.md §6), and they are printed, from
+# PRINTED_COST_CALLS calls each (20 before phase "elastic" joined the
+# script: the depth cut that keeps it within its time)
 COST_CALLS = 20
+PRINTED_COST_CALLS = 5
 STEP_FORCED_BYTES = 0
 TRACE_KERNELS = {"flash_fwd": "fwd_kernel", "flash_bwd_dkv": "dkv_kernel",
                  "flash_bwd_dq": "dq_kernel"}
@@ -719,6 +779,9 @@ def main(argv=None) -> int:
                     help="phase \"ops\"'s submitted job: train the slice's "
                          "model on TOKENS (.npy) through the cluster at "
                          "RAY_TPU_ADDRESS; print JOB_RESULT")
+    ap.add_argument("--elastic-learners", action="store_true",
+                    help="phase \"elastic\"'s part 2, which run_elastic "
+                         "starts in a process of its own beside part 1")
     ap.add_argument("--client-entry", nargs=2, metavar=("GO", "RELEASE"),
                     help="phase \"ops\"'s thin client: once the file GO "
                          "holds the proxy's ray:// address, score through "
@@ -729,6 +792,8 @@ def main(argv=None) -> int:
         return job_entry(*args.job_entry)
     if args.client_entry:
         return client_entry(*args.client_entry)
+    if args.elastic_learners:
+        return elastic_learners_entry()
 
     import torch
     if not torch.cuda.is_available():
@@ -967,6 +1032,12 @@ def main(argv=None) -> int:
         ops_launches = run_ops(torch, cfg, tokens, slice_first, kind, smi)
         for name in records:
             records[name]["launches_by_path"]["ops"] = ops_launches[name]
+
+    with phase("elastic"):
+        elastic_launches = run_elastic(torch, cfg, tokens, kind, smi)
+        for name in records:
+            records[name]["launches_by_path"]["elastic"] = \
+                elastic_launches[name]
 
     # after the runs, so that a spill does not hide what the kernels do
     spilled = {src: n for src, n in spills.items()
@@ -1394,13 +1465,24 @@ def check_grads(host, grads_c, grads_h, grads_x):
 def f32_learner(module, config):
     """A PPO learner for a gang rank's process, with TF32 off there as
     phase "device" sets it here, and cuDNN deterministic, as (4) sets it
-    here for the local learner the rank is held to."""
+    here for the local learner the rank is held to. Its update's stats
+    carry "flash_launches", the flash kernels' launches in the rank's
+    process so far, which this process's counters cannot see."""
     import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.rllib.algorithms.ppo.ppo import PPOLearner
+
+    class RankLearner(PPOLearner):
+        def update_distributed(self, *args, **kwargs):
+            stats = super().update_distributed(*args, **kwargs)
+            stats["flash_launches"] = sum(fa.launches.values())
+            return stats
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    return PPOLearner(module, config)
+    return RankLearner(module, config)
 
 
 def run_rllib(torch, kind, smi, profile=None):
@@ -1521,6 +1603,9 @@ def run_rllib(torch, kind, smi, profile=None):
           f"{w_diff:.2e}", flush=True)
     if report != {"device": "cuda:0", "visible_cards": 1, "backend": "nccl"}:
         raise AssertionError(f"gang rank: {report}")
+    if stats_gang["flash_launches"]:
+        raise AssertionError(f"the gang's rank launched flash kernels: "
+                             f"{stats_gang['flash_launches']}")
     # the JAX package's gang bar (tests/test_rl_round3.py:108-112), then
     # GANG_BARS: 100 Adam steps at lr 5e-5 can move a weight 5e-3
     if not (loss_diff < 1e-3 and w_diff < 1e-3
@@ -1599,7 +1684,7 @@ def run_pong(torch, cfg, runners, kind, smi):
                    algo.learner_group._local.module.parameters()}
         batch, args, kwargs = timed["last"]
         cost = sentinel_cost(torch, lambda: update(batch, *args, **kwargs),
-                             COST_CALLS)
+                             PRINTED_COST_CALLS)
     finally:
         algo.stop()
     check_sentinel_cost("the PPO learner's update", cost, kind, smi,
@@ -1697,7 +1782,9 @@ IMPALA_UPDATES = 20
 # slots (the algorithm's learner_queue_size + 4), whose FIFO free list
 # hands out every slot once before it reuses one
 FEED_BATCHES, FEED_SLOTS = 20, 8
-IMPALA_S, APPO_S = 30.0, 15.0           # wall seconds of algo.train()
+# wall seconds of algo.train() (30 and 15 before phase "elastic" joined
+# the script: the depth cut that keeps it within its time)
+IMPALA_S, APPO_S = 10.0, 5.0
 # IMPALA CartPole (rllib_learning_sweep.impala_cartpole_config, the bar
 # BAR within IMPALA_ITERS iterations): the asynchronous path's sample
 # order is not deterministic, so one seed proves nothing; over seeds 0-19
@@ -1824,8 +1911,8 @@ def impala_learners(torch, np, kind, smi):
             raise AssertionError(f"{name} updates card {totals['card']} vs "
                                  f"CPU {totals['CPU']}")
         check_sentinel_cost(f"the {name}'s update", sentinel_cost(
-            torch, lambda: card.update(batch), COST_CALLS), kind, smi,
-            gate=False)
+            torch, lambda: card.update(batch), PRINTED_COST_CALLS), kind,
+            smi, gate=False)
         del card, host
 
 
@@ -2117,7 +2204,8 @@ REPLAY_S = 30.0
 # iterations timed after learning starts: prioritized DQN, and SAC, TD3
 # and DDPG on Pendulum
 PRIORITIZED_ITERS = 30
-CONTINUOUS_ITERS = {"SAC": 30, "TD3": 30, "DDPG": 5}
+# SAC and TD3 took 30 before phase "elastic" joined the script
+CONTINUOUS_ITERS = {"SAC": 15, "TD3": 15, "DDPG": 5}
 # the bytes a local update forces to the host: its stats, one f64 block
 # (Learner.update's sweep_stats) of the scalars (DQN 5, SAC 8, TD3 5)
 # and the last minibatch's per-row arrays (DQN td_error, td_indexes,
@@ -4053,7 +4141,7 @@ def parallel_loop():
             nonlocal state
             state, _ = train_step(state, batch)
 
-        out["sentinel_ms"] = sentinel_cost(torch, step, COST_CALLS)
+        out["sentinel_ms"] = sentinel_cost(torch, step, PRINTED_COST_CALLS)
         out.update({
             "losses": losses + [x.item() for x in timed],
             "step_ms": dt / PARALLEL_TIMED * 1e3,
@@ -5237,6 +5325,686 @@ def run_ops(torch, cfg, tokens, slice_first, kind, smi):
     print(f"  phase {total:.1f} s (predicted "
           f"{sum(OPS_PREDICT_S.values()):.0f} s); {kind}; {smi}", flush=True)
     return launches
+
+
+# phase "elastic": a GPT-2-125M TorchTrainer that shrinks and grows back
+# through AutoscalerV2 (tests/test_elastic.py:535-745 at the slice's
+# model, 2 -> 1 -> 2), then an elastic learner gang on the card
+ELASTIC_CPUS = 4
+# rank 0 saves params and AdamW's state (~1.5 GB) every ELASTIC_CKPT_EVERY
+# steps, and the trainer copies each into its run directory
+ELASTIC_CKPT_EVERY = 20
+# a replacement node boots once the gang has taken ELASTIC_DEGRADED_STEPS
+# steps at world 1 (the JAX drill's boot sleeps 10 s; on the card a
+# re-formed gang's processes take longer than that to start, and the
+# gang then grows back before it steps below its target), at most after
+# ELASTIC_REBOOT_MAX_S
+ELASTIC_DEGRADED_STEPS = 3
+ELASTIC_REBOOT_MAX_S = 120.0
+ELASTIC_RERUN_FRAC = 0.05    # a re-run step's loss, of the first loss
+ELASTIC_FREE_S = 30          # the card's memory back after teardown
+ELASTIC_FREE_GIB = 1.0       # above what this process held before
+ELASTIC_DEADLINES = {"world-2 training": 300, "world-1 resume": 240,
+                     "world-2 re-grow": 300}
+ELASTIC_WEDGE_DEADLINE_S = 2.0
+ELASTIC_LEARNERS_S = 600     # part 2's process, at most
+ELASTIC_WEDGE_STALE_S = 3.0
+
+
+def elastic_loop(config):
+    """Phase "elastic"'s train loop, in each rank: the slice's model from
+    SEED, AdamW through make_train_step with no mesh (the ranks' math
+    stays per rank; their gloo group carries no collective), rows
+    rank::world of the slice's batch; a resumed gang loads the latest
+    checkpoint on every rank and checks it. Rank 0 saves params, AdamW's
+    state and the step with torch.save every ELASTIC_CKPT_EVERY steps
+    into a pid-suffixed staging directory (a drained zombie rank 0 must
+    not tear the new gang's files), and after each step takes the loss of
+    its params on all 16 rows under no_grad. Each rank appends a JSON line
+    a step (and one for its resume) to its own file under
+    config["base"]."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import Transformer
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step
+    from ray_tpu_torch.train import Checkpoint
+
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    log_path = os.path.join(config["base"], f"rank{rank}-{os.getpid()}.log")
+
+    def log(**rec):
+        with open(log_path, "a") as f:
+            f.write(json.dumps({"rank": rank, "world": world,
+                                "time": time.time(), **rec}) + "\n")
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the driver has it
+    torch.backends.cudnn.allow_tf32 = False
+    model = Transformer(config["cfg"], seed=SEED)
+    init_state, train_step = make_train_step(
+        lambda p, bt: model.loss(bt),
+        optimizer=adamw(1e-4, weight_decay=0.01))
+    state = init_state(dict(model.named_parameters()))
+    opt = state["opt_state"]
+    start = 0
+    ckpt = train.get_checkpoint()
+    if ckpt:
+        t0 = time.perf_counter()
+        saved = torch.load(os.path.join(ckpt.path, "state.pt"),
+                           map_location="cuda")
+        with torch.no_grad():
+            for name, p in state["params"].items():
+                p.copy_(saved["params"][name])
+        opt.load_state_dict(saved["opt"])
+        start = state["step"] = saved["step"] + 1
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ours = opt.state_dict()["state"]
+        params_equal = all(torch.equal(p, saved["params"][name])
+                           for name, p in state["params"].items())
+        adam_equal = all(torch.equal(ours[i][k], v)
+                         for i, s in saved["opt"]["state"].items()
+                         for k, v in s.items())
+        log(resume=start, load_s=load_s, params_equal=params_equal,
+            adam_equal=adam_equal,
+            adam_steps=sorted({int(s["step"]) for s in ours.values()}))
+        del saved
+    rows = torch.tensor(config["tokens"][rank::world], device="cuda")
+    every_row = torch.tensor(config["tokens"], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    staged = None
+    step = start
+    while step < 100_000:  # the stop file ends the run
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, {"tokens": rows})
+        loss = metrics["loss"].item()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        rec = {"step": step, "loss": loss, "step_ms": step_ms,
+               "rows": int(rows.shape[0]), "launches": dict(fa.launches)}
+        if rank == 0:
+            # the checkpointed params' loss on all 16 rows, which worlds
+            # share (a rank's own rows differ with the world)
+            fa.reset_launches()
+            with torch.no_grad():
+                rec["full_loss"] = model.loss({"tokens": every_row}).item()
+            rec["eval_launches"] = dict(fa.launches)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        checkpoint = None
+        if rank == 0 and (step + 1) % config["ckpt_every"] == 0:
+            cdir = os.path.join(config["base"], f"wip_{step}_{os.getpid()}")
+            os.makedirs(cdir)
+            t0 = time.perf_counter()
+            torch.save({"params": {k: p.detach() for k, p in
+                                   state["params"].items()},
+                        "opt": opt.state_dict(), "step": step},
+                       os.path.join(cdir, "state.pt"))
+            rec["save_s"] = time.perf_counter() - t0
+            checkpoint = Checkpoint(cdir)
+            checkpoint.update_metadata({"step": step})
+        log(**rec)
+        train.report({"step": step, "world": world, "loss": loss},
+                     checkpoint=checkpoint)
+        if checkpoint is not None:
+            # report() returned, so the trainer took the last round and
+            # is past the previous checkpoint's, ELASTIC_CKPT_EVERY rounds
+            # back: it has copied that one into its run directory
+            if staged is not None:
+                shutil.rmtree(staged, ignore_errors=True)
+            staged = checkpoint.path
+        step += 1
+        if os.path.exists(config["stop_file"]):
+            with open(config["stop_file"]) as f:
+                if step >= int(f.read().strip() or 10 ** 9):
+                    break
+
+
+def elastic_rows(base):
+    """Every rank's records, in time order."""
+    out = []
+    for name in os.listdir(base):
+        if name.startswith("rank") and name.endswith(".log"):
+            with open(os.path.join(base, name)) as f:
+                out += [json.loads(line) for line in f if line.strip()]
+    return sorted(out, key=lambda r: r["time"])
+
+
+def elastic_wait(base, pred, what, card, describe):
+    """Polls the ranks' records until pred(steps) holds (steps: rank 0's
+    step records), sampling the card's memory in use meanwhile; prints
+    when it held. On its deadline, raises with describe()'s account."""
+    t0 = time.monotonic()
+    deadline = t0 + ELASTIC_DEADLINES[what]
+    steps = []
+    while time.monotonic() < deadline:
+        card.sample()
+        steps = [r for r in elastic_rows(base)
+                 if r["rank"] == 0 and "step" in r]
+        if steps and pred(steps):
+            print(f"  [{what}] after {time.monotonic() - t0:.1f} s: rank 0 "
+                  f"at step {steps[-1]['step']}, world {steps[-1]['world']}",
+                  flush=True)
+            return steps
+        time.sleep(0.2)
+    raise AssertionError(
+        f"timed out waiting for {what}; rank 0's steps (step, world): "
+        f"{[(r['step'], r['world']) for r in steps[-8:]]} of {len(steps)};"
+        f" {describe()}")
+
+
+class CardMemory:
+    """The card's memory in use by every process (cudaMemGetInfo), its
+    peak over the samples taken."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.peak = self.used()
+
+    def used(self):
+        free, total = self.torch.cuda.mem_get_info()
+        return (total - free) / 2**30
+
+    def sample(self):
+        self.peak = max(self.peak, self.used())
+
+
+def kill_landed(rule_id, node):
+    """Whether chaos rule `rule_id` has killed the RayTrainWorker on
+    `node`: its fire counted, or the actor dead in the GCS (a worker that
+    kills itself can die before its fire's one-way report leaves)."""
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch.util import state as state_api
+    return any(r["rule_id"] == rule_id and r["fired"]
+               for r in chaos.list_rules()) or any(
+        "RayTrainWorker" in a["class_name"] and a["node_id"] == node
+        and a["state"] == "DEAD" for a in state_api.list_actors())
+
+
+def has_subsequence(seq, sub):
+    it = iter(seq)
+    return all(x in it for x in sub)
+
+
+def check_elastic_records(records, n_layers, vocab_size):
+    """Part 1's checks on the ranks' records (elastic_loop's lines):
+    rank 0's worlds hold 2 -> 1 -> 2 and end at 2; one fresh start and a
+    re-run step; every resumed rank took the checkpoint bit for bit, with
+    AdamW's step the resume step, and at least two ranks resumed; rank
+    0's loss on all 16 rows: the first ln(vocab_size) +/- 0.5, falling,
+    and at each resume step (the first step after a checkpoint, run
+    again) within ELASTIC_RERUN_FRAC of the first loss over every run of
+    it (a later re-run step drifts by more than one resharded step: a
+    world-1 gang learns the rows rank 0 never saw); n_layers launches of
+    each kernel in every rank-step, and n_layers forward launches in
+    rank 0's evaluation. Returns the world trajectory."""
+    steps = [r for r in records if r["rank"] == 0 and "step" in r]
+    rank_steps = [r for r in records if "step" in r]
+    resumes = [r for r in records if "resume" in r]
+    worlds = [r["world"] for r in steps]
+    shape = [w for w, prev in zip(worlds, [None] + worlds[:-1]) if w != prev]
+    numbers = [r["step"] for r in steps]
+    if not has_subsequence(shape, [2, 1, 2]) or worlds[-1] != 2:
+        raise AssertionError(f"world trajectory {shape}")
+    if numbers[0] != 0 or numbers.count(0) != 1:
+        raise AssertionError(f"restarted from scratch: {numbers[:12]}")
+    if len(numbers) == len(set(numbers)):
+        raise AssertionError("no step re-ran: no resume from a checkpoint")
+    for r in resumes:
+        if not (r["params_equal"] and r["adam_equal"]
+                and r["adam_steps"] == [r["resume"]]):
+            raise AssertionError(f"a resume that is not the checkpoint: {r}")
+    if len(resumes) < 2:
+        raise AssertionError(f"{len(resumes)} resumed ranks, not >= 2")
+    losses = [r["full_loss"] for r in steps]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite loss")
+    if abs(losses[0] - math.log(vocab_size)) > 0.5:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln({vocab_size})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss does not fall: {losses[0]} -> "
+                             f"{losses[-1]}")
+    by_step = {}
+    for r in steps:
+        by_step.setdefault(r["step"], []).append(r["full_loss"])
+    for s in {r["resume"] for r in resumes}:
+        ls = by_step.get(s, [])
+        if len(ls) > 1 and max(ls) - min(ls) > ELASTIC_RERUN_FRAC * losses[0]:
+            raise AssertionError(f"re-run step {s}: losses {ls}")
+    evaluation = {n: n_layers if n == "flash_fwd" else 0
+                  for n in KERNEL_SOURCES}
+    bad = [r for r in rank_steps
+           if r["launches"] != {n: n_layers for n in KERNEL_SOURCES}
+           or r.get("eval_launches", evaluation) != evaluation
+           or (r["rank"] == 0) != ("eval_launches" in r)]
+    if bad:
+        raise AssertionError(f"{len(bad)} rank-steps without {n_layers} "
+                             f"launches of each kernel: {bad[:2]}")
+    return shape
+
+
+def run_elastic(torch, cfg, tokens, kind, smi):
+    """Phase "elastic" (the module docstring's phase 17). Returns the
+    launches of each kernel over every rank-step of part 1."""
+    import statistics
+    import subprocess
+
+    import ray_tpu_torch
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch._private.config import Config
+    from ray_tpu_torch.autoscaler import LocalNodeProvider, NodeType
+    from ray_tpu_torch.autoscaler.v2 import (RAY_RUNNING, TERMINATED,
+                                             AutoscalerV2,
+                                             ClusterStatusReader)
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig,
+                                     RunConfig, ScalingConfig, TorchConfig,
+                                     TorchTrainer)
+
+    class SlowRebootProvider(LocalNodeProvider):
+        """The first boot is at once; a replacement waits until the gang
+        has run degraded (ELASTIC_DEGRADED_STEPS steps at world 1), as a
+        re-provisioned host takes a while."""
+
+        def __init__(self, address):
+            super().__init__(address)
+            self.boots, self.waited = 0, None
+
+        def create_node(self, resources):
+            self.boots += 1
+            if self.boots > 1:
+                t0 = time.monotonic()
+                while time.monotonic() - t0 < ELASTIC_REBOOT_MAX_S and sum(
+                        1 for r in elastic_rows(base) if r["rank"] == 0
+                        and r.get("world") == 1 and "step" in r) < \
+                        ELASTIC_DEGRADED_STEPS:
+                    time.sleep(0.2)
+                self.waited = time.monotonic() - t0
+            return super().create_node(resources)
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    card = CardMemory(torch)
+    baseline = card.used()
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    base, stop_file = os.path.join(root, "loop"), os.path.join(root, "stop")
+    os.makedirs(base)
+    # part 2 runs in a process of its own beside part 1, with its own
+    # cluster, chaos rules and wedge settings: the parts are independent,
+    # and each spends its time on processes' starts
+    learners_log = os.path.join(root, "learners.log")
+    with open(learners_log, "w") as out:
+        learners = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--elastic-learners"],
+            stdout=out, stderr=subprocess.STDOUT, cwd=REPO)
+    learners_rc = None
+    health = Config.health_check_period_s
+    Config.health_check_period_s = 0.5  # the preempted node's death, soon
+    cluster = scaler = None
+    fit_result = []
+    try:
+        cluster = Cluster(initialize_head=True, connect=False,
+                          head_node_args={"num_cpus": ELASTIC_CPUS,
+                                          "resources": {"trainslot": 1,
+                                                        "GPU": 1}})
+        cluster.connect()
+        chaos.clear()
+        scaler = AutoscalerV2(
+            ClusterStatusReader(cluster.address),
+            SlowRebootProvider(cluster.address),
+            [NodeType("train", {"trainslot": 1, "CPU": 1, "GPU": 1})],
+            max_nodes=2, idle_timeout_s=300.0, gcs_address=cluster.address,
+            poll_period_s=1.0)
+        scaler.start()
+        trainer = TorchTrainer(
+            elastic_loop,
+            train_loop_config={"cfg": cfg, "tokens": tokens, "base": base,
+                               "stop_file": stop_file,
+                               "ckpt_every": ELASTIC_CKPT_EVERY},
+            torch_config=TorchConfig(backend="gloo"),
+            scaling_config=ScalingConfig(
+                num_workers=2, use_gpu=True,
+                resources_per_worker={"trainslot": 1, "GPU": 0.5},
+                elastic_min_workers=1, elastic_reform_timeout_s=15),
+            run_config=RunConfig(
+                storage_path=os.path.join(root, "results"), name="elastic",
+                failure_config=FailureConfig(max_failures=4),
+                checkpoint_config=CheckpointConfig(num_to_keep=2)))
+        import threading
+        t_fit = time.time()
+        fit = threading.Thread(target=lambda: fit_result.append(
+            trainer.fit()), daemon=True)
+        fit.start()
+
+        # (1) world 2 once the autoscaler's node has joined, past a
+        # checkpoint
+        def describe():
+            from ray_tpu_torch.util import metrics as metrics_mod
+            counter = metrics_mod.get_or_create(
+                metrics_mod.Counter,
+                "ray_tpu_elastic_reconfigurations_total",
+                tag_keys=("reason",))
+            recs = elastic_rows(base)
+            worlds = [r["world"] for r in recs
+                      if r["rank"] == 0 and "step" in r]
+            return (f"worlds {[w for w, p in zip(worlds, [None] + worlds)
+                               if w != p]}; resumes "
+                    f"{[(r['rank'], r['resume']) for r in recs if 'resume' in r]};"
+                    f" saves {[round(r['save_s'], 2) for r in recs if 'save_s' in r]};"
+                    f" reconfigurations "
+                    f"{dict(counter.snapshot()['values'])}; instances "
+                    f"{[(i.status, (i.node_id_hex or '')[:8]) for i in scaler.im.instances.values()]};"
+                    f" nodes alive "
+                    f"{[(n['NodeID'][:8], n['Alive']) for n in ray_tpu_torch.nodes()]}")
+
+        steps = elastic_wait(
+            base, lambda s: s[-1]["world"] == 2
+            and s[-1]["step"] >= ELASTIC_CKPT_EVERY + 2, "world-2 training",
+            card, describe)
+        victims = [i for i in scaler.im.instances.values()
+                   if i.status == RAY_RUNNING]
+        if not victims:
+            raise AssertionError("the autoscaler supplied no node")
+        victim = victims[0].node_id_hex
+        # (2) preempt it: the chaos kill of its RayTrainWorker and a
+        # partition of the node from the head, both ways; once the kill
+        # has landed, the host goes (the provider ends the node, as a
+        # cloud reclaims a preempted host). Ending the host is also the
+        # workaround for a defect shared with the JAX package (ROADMAP
+        # Queue 3): the partition leaves the node alive, since its
+        # resource reports still reach the GCS and reset the failed
+        # health probes, so a gang re-formed at once can land on it again
+        t_kill = time.time()
+        kill = chaos.inject("kill_worker", actor_class="RayTrainWorker",
+                            node_id=victims[0].node_id_hex, max_fires=1)
+        chaos.inject("partition",
+                     nodes=(cluster.head_node.node_id_hex, victim))
+        deadline = time.monotonic() + 60
+        while not kill_landed(kill, victim):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the kill never fired; {describe()}")
+            time.sleep(0.1)
+        scaler.im.provider.terminate_node(victims[0].provider_node)
+        print(f"  kill fired {time.time() - t_kill:.2f} s after its "
+              f"injection; the host ended", flush=True)
+        n_before = len(steps)
+        steps = elastic_wait(
+            base, lambda s: s[-1]["world"] == 1
+            and len(s) >= n_before + 2, "world-1 resume", card, describe)
+        # (3) the replacement node: the gang grows back to 2
+        steps = elastic_wait(
+            base, lambda s: s[-1]["world"] == 2 and sum(
+                1 for r in s[n_before:] if r["world"] == 2) >= 2,
+            "world-2 re-grow", card, describe)
+        # every rank stops once its step reaches the file's: past the
+        # furthest step any rank has logged, since the ranks step apart
+        # (no collective), each at most two report rounds ahead of the
+        # trainer, and a rank already past the file's step would report
+        # more rounds than its peers
+        with open(stop_file, "w") as f:
+            f.write(str(max(r["step"] for r in elastic_rows(base)
+                            if "step" in r) + 4))
+        fit.join(timeout=300)
+        if fit.is_alive():
+            raise AssertionError("fit() did not end after the stop file")
+        result = fit_result[0]
+        if result.error is not None:
+            raise AssertionError(f"the elastic run failed: "
+                                 f"{result.error!r}")
+        t_end = time.time()
+        card.sample()
+
+        from ray_tpu_torch._private import spans as spans_mod
+        from ray_tpu_torch._private import worker as worker_mod
+        from ray_tpu_torch.util import metrics as metrics_mod
+        names = [str(e.get("name", "")) for e in spans_mod.merge_snapshots(
+            worker_mod.global_worker().core_worker._gcs.call(
+                "spans_collect"))]
+        counter = metrics_mod.get_or_create(
+            metrics_mod.Counter, "ray_tpu_elastic_reconfigurations_total",
+            tag_keys=("reason",))
+        reasons = {dict(k).get("reason"): v
+                   for k, v in counter.snapshot()["values"].items()}
+        instances = list(scaler.im.instances.values())
+        cli = ops_check_cli(ops_cli(cluster.address, "autoscaler"),
+                            "autoscaler")
+    finally:
+        Config.health_check_period_s = health
+        with contextlib.suppress(Exception):
+            chaos.clear()
+        if scaler is not None:
+            scaler.stop()
+            for node in scaler.im.provider.non_terminated_nodes():
+                with contextlib.suppress(Exception):
+                    scaler.im.provider.terminate_node(node)
+        if cluster is not None:
+            cluster.shutdown()
+        try:
+            learners_rc = learners.wait(timeout=ELASTIC_LEARNERS_S)
+        except subprocess.TimeoutExpired:
+            learners.kill()
+            learners.wait()
+        with open(learners_log) as f:
+            print("  part 2, in a process of its own beside part 1:\n"
+                  + "".join(line for line in f
+                            if "hostname of the client" not in line),
+                  end="", flush=True)
+    # the card's memory back once every process of the drill is gone
+    deadline = time.monotonic() + ELASTIC_FREE_S
+    while card.used() > baseline + ELASTIC_FREE_GIB and \
+            time.monotonic() < deadline:
+        time.sleep(0.5)
+    left = card.used()
+    records = elastic_rows(base)
+    shutil.rmtree(root, ignore_errors=True)
+
+    shape = check_elastic_records(records, cfg.n_layers, cfg.vocab_size)
+    steps = [r for r in records if r["rank"] == 0 and "step" in r]
+    rank_steps = [r for r in records if "step" in r]
+    resumes = [r for r in records if "resume" in r]
+    first_w1 = next(r for r in steps
+                    if r["world"] == 1 and r["time"] > t_kill)
+    regrown = next(r for r in steps[steps.index(first_w1):]
+                   if r["world"] == 2)
+    replacement = [t for i in instances for t in i.transitions
+                   if t["to"] == RAY_RUNNING and t["ts"] > t_kill]
+    by_world = {w: statistics.median(r["step_ms"] for r in rank_steps
+                                     if r["world"] == w and
+                                     r["step"] not in (0,))
+                for w in (1, 2)}
+    saves = [r["save_s"] for r in rank_steps if "save_s" in r]
+    peaks = {}
+    for r in rank_steps:
+        key = f"rank {r['rank']} of {r['world']}"
+        peaks[key] = max(peaks.get(key, 0.0), r["peak_gib"])
+    launches = {}
+    for r in rank_steps:
+        for counts in (r["launches"], r.get("eval_launches", {})):
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+    print(f"  worlds {shape} over {len(steps)} rank-0 steps ({len(rank_steps)}"
+          f" rank-steps), fit() {t_end - t_fit:.2f} s; kill to the first "
+          f"world-1 step {first_w1['time'] - t_kill:.2f} s; the "
+          f"replacement's RAY_RUNNING to the first world-2 step "
+          f"{regrown['time'] - min(t['ts'] for t in replacement):.2f} s "
+          f"(its boot waited {scaler.im.provider.waited:.2f} s for "
+          f"{ELASTIC_DEGRADED_STEPS} world-1 steps); step median "
+          f"{by_world[2]:.2f} ms at world 2 (8 rows a rank), "
+          f"{by_world[1]:.2f} ms at world 1 (16 rows); {kind}; {smi}",
+          flush=True)
+    print(f"  checkpoint every {ELASTIC_CKPT_EVERY} steps: torch.save "
+          f"{min(saves):.2f}-{max(saves):.2f} s ({len(saves)} saves); "
+          f"loads {['%.2f' % r['load_s'] for r in resumes]} s; peak memory "
+          f"a rank {json.dumps({k: round(v, 2) for k, v in peaks.items()})}"
+          f" GiB; the card's peak in use {card.peak:.2f} GiB (this process "
+          f"{baseline:.2f} before), {left:.2f} GiB after teardown; "
+          f"reconfigurations {reasons}; {kind}; {smi}", flush=True)
+    print(f"  `ray_tpu_torch autoscaler`:\n    "
+          + "\n    ".join(cli.strip().splitlines()[:12]), flush=True)
+    for phase_name in ("drain", "checkpoint", "reform", "reshard", "resume"):
+        if names.count(f"elastic.{phase_name}") < 2:
+            raise AssertionError(f"elastic.{phase_name} spans: "
+                                 f"{names.count(f'elastic.{phase_name}')}")
+    if "elastic.detect" not in names:
+        raise AssertionError("no elastic.detect span")
+    if not (reasons.get("worker_death", 0) >= 1
+            and reasons.get("scale_up", 0) >= 1):
+        raise AssertionError(f"reconfigurations {reasons}")
+    statuses = {i.status for i in instances}
+    if not {TERMINATED, RAY_RUNNING} <= statuses:
+        raise AssertionError(f"autoscaler instances {statuses}")
+    if not ("TERMINATED" in cli and "RAY_RUNNING" in cli):
+        raise AssertionError(f"`ray_tpu_torch autoscaler`:\n{cli}")
+    if left > baseline + ELASTIC_FREE_GIB:
+        raise AssertionError(f"the card holds {left:.2f} GiB after teardown"
+                             f" ({baseline:.2f} before the phase)")
+    if card.peak > 80:
+        raise AssertionError(f"the card's peak {card.peak:.2f} GiB")
+    if learners_rc != 0:
+        raise AssertionError(f"part 2 exited {learners_rc}")
+    print(f"  parts 1 and 2 {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+def elastic_learners_entry():
+    """Part 2 of phase "elastic" in a process of its own (run_elastic
+    starts this script with --elastic-learners beside part 1)."""
+    import torch
+
+    from ray_tpu_torch._device import gpu_info
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    elastic_learners(torch, torch.cuda.get_device_name(0), gpu_info())
+    return 0
+
+
+def elastic_learners(torch, kind, smi):
+    """Part 2: tests/test_elastic.py:369-406 at phase "rllib"'s PPO
+    learner on the card, one NCCL rank; then a wedge, as
+    tests/test_wedge.py:321 makes one."""
+    import functools
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch._private.config import Config
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.rllib import DiscreteConvModule, LearnerGroup, PPOConfig
+    from ray_tpu_torch.rllib.algorithms.ppo.ppo import PPOLearner
+    from ray_tpu_torch.util import state as state_api
+
+    t0 = time.perf_counter()
+    cfg = (PPOConfig().environment("MiniPong-v0").training(**PONG_PPO)
+           .debugging(seed=SEED))
+    module = DiscreteConvModule(PONG_OBS, PONG_ACTIONS)
+    module.init_params(SEED)
+    batch = pong_batch(torch, module, PONG_PPO["train_batch_size"])
+    fa.reset_launches()
+    torch.backends.cudnn.deterministic = True
+    local = PPOLearner(module, cfg)
+    local.build(SEED)
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_learners_")
+    stale = Config.watchdog_gang_heartbeat_s
+    group = None
+    took, rows = {}, []
+
+    def both(seed, what):
+        """One full-batch update (one Adam step) of the gang and of the
+        local learner; the gang's step count, and its distance from the
+        local learner's stats and weights."""
+        t = time.perf_counter()
+        got = group.update(batch, None, 1, seed=seed)
+        took[what] = time.perf_counter() - t
+        want = local.update(batch, None, 1, seed=seed)
+        w_gang, w_local = group.get_weights(), local.get_weights()
+        state = group.get_state()["opt_state"]["state"]
+        rows.append({
+            "what": what, "world": len(group._actors),
+            "adam_step": sorted({int(s["step"]) for s in state.values()}),
+            "total_loss": abs(got["total_loss"] - want["total_loss"])
+            / abs(want["total_loss"]),
+            "grad_norm": abs(got["grad_norm"] - want["grad_norm"])
+            / want["grad_norm"],
+            "weights": max(float(np.max(np.abs(w_gang[k] - w_local[k])))
+                           for k in w_local),
+            "flash_launches": got["flash_launches"]})
+
+    try:
+        ray_tpu_torch.init(num_cpus=ELASTIC_CPUS, _session_root=root)
+        t = time.perf_counter()
+        group = LearnerGroup(functools.partial(f32_learner, module, cfg),
+                             num_learners=1, seed=SEED,
+                             elastic_min_learners=1,
+                             elastic_reform_timeout_s=120.0)
+        took["formed"] = time.perf_counter() - t
+        report = ray_tpu_torch.get(group._actors[0].device_report.remote(),
+                                   timeout=120)
+        both(1, "update 1")
+        ray_tpu_torch.kill(group._actors[0])
+        both(2, "update 2 after a kill")
+        t = time.perf_counter()
+        group.reconfigure(1, reason="scale_down")
+        took["reconfigure"] = time.perf_counter() - t
+        both(3, "update 3 after reconfigure(1)")
+        before_wedge = group._tracker.reconfigs_total
+        # a wedge: chaos SIGSTOPs the rank (its heartbeat sidecar too);
+        # the supervisor trips on the deadline with a stale heartbeat,
+        # hard-kills it through its node manager and re-forms the gang
+        chaos.clear()
+        chaos.inject("stall_worker", actor_class="*MeshLearnerActor*",
+                     probability=1.0, max_fires=1, delay_ms=60000.0)
+        deadline = time.monotonic() + 60
+        while sum(r["fired"] for r in chaos.list_rules()) < 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("the stall never fired")
+            time.sleep(0.2)
+        Config.watchdog_gang_heartbeat_s = ELASTIC_WEDGE_STALE_S
+        state_api.metrics_configure(step_deadline_s=ELASTIC_WEDGE_DEADLINE_S)
+        both(4, "update 4 through a wedge")
+        history = [h["reason"] for h in group._tracker.history]
+        reconfigs = group._tracker.reconfigs_total
+    finally:
+        Config.watchdog_gang_heartbeat_s = stale
+        torch.backends.cudnn.deterministic = False
+        with contextlib.suppress(Exception):
+            chaos.clear()
+            state_api.metrics_configure(step_deadline_s=0)
+        if group is not None:
+            group.shutdown()
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  elastic learner gang of 1 (PPO's Nature CNN, {len(batch['obs'])}"
+          f" rows an update): formed {took['formed']:.2f} s, {report}; "
+          + "; ".join(f"{r['what']} {took[r['what']]:.2f} s: world "
+                      f"{r['world']}, Adam step {r['adam_step']}, total_loss "
+                      f"{r['total_loss']:.1e} and grad_norm "
+                      f"{r['grad_norm']:.1e} from the local learner, "
+                      f"weights {r['weights']:.1e}" for r in rows)
+          + f"; reconfigure(1) {took['reconfigure']:.2f} s; reasons "
+          f"{history}; flash launches in the ranks "
+          f"{[r['flash_launches'] for r in rows]}; {kind}; {smi}", flush=True)
+    if report != {"device": "cuda:0", "visible_cards": 1, "backend": "nccl"}:
+        raise AssertionError(f"gang rank: {report}")
+    for i, r in enumerate(rows, 1):
+        if r["world"] != 1 or r["adam_step"] != [i]:
+            raise AssertionError(f"{r['what']}: {r}")
+        if not all(r[k] < GANG_BARS[k] for k in GANG_BARS):
+            raise AssertionError(f"{r['what']}: the gang left the local "
+                                 f"learner: {r}")
+    if history != ["worker_death", "scale_down", "wedge"] or \
+            (before_wedge, reconfigs) != (2, 3):
+        raise AssertionError(f"reconfigurations {history} ({before_wedge}, "
+                             f"then {reconfigs})")
+    ranks = sum(r["flash_launches"] for r in rows)
+    if any(fa.launches.values()) or ranks:
+        raise AssertionError(f"the learners launched flash kernels: local "
+                             f"{dict(fa.launches)}, the gang's ranks {ranks}")
+    print(f"  part 2 {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -11,19 +11,29 @@ identical params after every step and Adam's semantics match a single
 learner's exactly. On the card each rank holds one GPU and the group is
 NCCL; with device="cpu" it is gloo.
 
-Elastic learner gangs (elastic_min_learners, reconfigure) are not
-ported yet: they raise, naming their ROADMAP row.
+Elastic mode (elastic_min_learners set): the gang survives member
+death, wedged ranks and explicit resizes. The driver keeps a host-side
+state cache (params and optimizer state as numpy, refreshed every
+`state_refresh_every` successful updates, default 1 — the gang's
+durable checkpoint); when an update loses a rank, a rank wedges
+(GangWedgedError from the heartbeat supervisor) or reconfigure() is
+called, the gang is drained, re-spawned as fresh processes with a fresh
+process group at the new world size (bounded by
+elastic_reform_timeout_s, stepping down toward elastic_min_learners
+when capacity is short), the cached state is set on every rank
+(reshard: each rank slices its data shard by the new world), and the
+update is retried — with the same elastic.* span sequence and
+reconfiguration metrics as the train plane (train/elastic.py).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+import logging
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-_ELASTIC = ("elastic learner gangs (elastic_min_learners, reconfigure) "
-            "are not ported yet: ROADMAP Queue 1 item 3, 'elastic learner "
-            "gangs'")
+logger = logging.getLogger(__name__)
 
 
 def local_ranks(node_ids: List[str]) -> List[int]:
@@ -50,6 +60,7 @@ class _MeshLearnerActor:
                  gang_id: str = ""):
         self.rank = rank
         self._factory = factory
+        self._store = None
         self._heartbeat = None
         if gang_id:
             from ray_tpu_torch.train.heartbeat import HeartbeatSender
@@ -61,8 +72,22 @@ class _MeshLearnerActor:
         import ray_tpu_torch
         return ray_tpu_torch.get_runtime_context().get_node_id()
 
-    def setup(self, local_rank: int, master: str, world: int, seed: int,
-              on_card: bool) -> None:
+    def open_store(self, world: int, timeout_s: float) -> Tuple[str, int]:
+        """Rank 0: the group's rendezvous store, listening on a port the
+        OS picks as it binds (a port picked first and bound later can be
+        taken in between by another process); returns its address."""
+        import datetime
+
+        import torch.distributed as dist
+
+        from ray_tpu_torch.train.torch_backend import _get_node_ip
+        self._store = dist.TCPStore(
+            "0.0.0.0", 0, world, is_master=True, wait_for_workers=False,
+            timeout=datetime.timedelta(seconds=timeout_s))
+        return _get_node_ip(), self._store.port
+
+    def setup(self, local_rank: int, master: Tuple[str, int], world: int,
+              seed: int, on_card: bool, timeout_s: float) -> None:
         import datetime
 
         import torch
@@ -80,10 +105,12 @@ class _MeshLearnerActor:
             torch.cuda.set_device(0)
         else:
             torch.set_num_threads(1)  # the ranks share the node's cores
+        timeout = datetime.timedelta(seconds=timeout_s)
+        store = self._store or dist.TCPStore(
+            master[0], master[1], world, is_master=False, timeout=timeout)
         dist.init_process_group(
-            backend="nccl" if on_card else "gloo",
-            init_method=f"tcp://{master}", world_size=world,
-            rank=self.rank, timeout=datetime.timedelta(seconds=300))
+            backend="nccl" if on_card else "gloo", store=store,
+            world_size=world, rank=self.rank, timeout=timeout)
         self.world = world
         self.learner = self._factory()
         self.learner.build_distributed(seed=seed)
@@ -153,47 +180,100 @@ class _MeshLearnerActor:
 
 
 class LearnerGroup:
+    # wedge supervisor cadence (mirrors train/backend_executor.py)
+    WEDGE_POLL_S = 1.0
+    WEDGE_HB_REFRESH_S = 2.0
+
     def __init__(self, learner_factory: Callable[[], Any],
                  num_learners: int = 0, seed: int = 0, *,
-                 elastic_min_learners: Optional[int] = None):
-        if elastic_min_learners is not None:
-            raise NotImplementedError(_ELASTIC)
-        self._num_learners = num_learners
+                 elastic_min_learners: Optional[int] = None,
+                 elastic_reform_timeout_s: float = 60.0,
+                 state_refresh_every: int = 1,
+                 step_deadline_s: Optional[float] = None):
+        if step_deadline_s is not None and step_deadline_s <= 0:
+            raise ValueError(
+                f"step_deadline_s must be > 0, got {step_deadline_s}")
+        # How many updates between refreshes of the state cache: each
+        # refresh pulls the full params and optimizer state from rank 0
+        # to the driver; N > 1 trades that cost for losing up to N - 1
+        # updates when a reconfiguration falls back to an older cache.
+        if state_refresh_every < 1:
+            raise ValueError("state_refresh_every must be >= 1")
+        self._num_learners = num_learners    # achieved world size
+        self._target_learners = num_learners  # what re-forms aim for
         self._factory = learner_factory
         self._seed = seed
+        self._elastic_min = elastic_min_learners
+        self._reform_timeout_s = elastic_reform_timeout_s
+        self._state_refresh_every = state_refresh_every
+        self._updates_since_refresh = 0
+        self._ckpt_state: Optional[Dict[str, Any]] = None
+        # gang heartbeat channel id; fresh per formation (_spawn_gang)
         self._gang_uid: Optional[str] = None
+        self._tracker = None
+        # per-step wedge deadline, enforced for elastic gangs only
+        # (explicit step_deadline_s, else calibrated from trailing
+        # update times; runtime-tunable via metrics_configure)
+        self._step_deadline = None
+        if elastic_min_learners is not None:
+            if num_learners == 0:
+                raise ValueError(
+                    "elastic_min_learners requires a remote gang "
+                    "(num_learners >= 1)")
+            if not 1 <= elastic_min_learners <= num_learners:
+                raise ValueError(
+                    f"elastic_min_learners={elastic_min_learners} not in "
+                    f"[1, num_learners={num_learners}]")
+            from ray_tpu_torch.train.elastic import ReconfigTracker
+            from ray_tpu_torch.train.heartbeat import StepDeadline
+            self._step_deadline = StepDeadline(step_deadline_s)
+            self._tracker = ReconfigTracker("learner")
         if num_learners == 0:
             self._local = learner_factory()
             self._local.build(seed=seed)
             self._actors: List[Any] = []
             return
         self._local = None
+        self._actors = []
         # the factory's own learner says where the ranks learn (its
         # config's learner_device): a card and NCCL each, or gloo on the
         # CPU; without the card it asks for, this raises before any spawn
-        on_card = learner_factory().target_device().type == "cuda"
-        self._actors = self._spawn_gang(num_learners, on_card)
+        self._on_card = learner_factory().target_device().type == "cuda"
+        self._actors = self._spawn_gang(num_learners)
+        if self.elastic:
+            # the gang's durable fallback until the first update lands
+            self._ckpt_state = self.get_state()
 
-    def _spawn_gang(self, world: int, on_card: bool) -> List[Any]:
-        """Spawn + rendezvous one gang of `world` fresh processes (each
-        formation gets its own runtime-env pool key)."""
+    @property
+    def elastic(self) -> bool:
+        return self._tracker is not None
+
+    def _spawn_gang(self, world: int) -> List[Any]:
+        """Spawn + rendezvous one gang generation of `world` fresh
+        processes (each formation gets its own runtime-env pool key, so
+        a re-form never reuses a process of an earlier group), within
+        elastic_reform_timeout_s for an elastic gang."""
+        import time
         import uuid
 
         import ray_tpu_torch
-        from ray_tpu_torch.train.elastic import free_port, gang_runtime_env
-        if on_card:
+        from ray_tpu_torch.train.elastic import gang_runtime_env
+        if self._on_card:
             gpus = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
             if gpus < world:
                 raise RuntimeError(
                     f"a learner gang of {world} on the card needs {world} "
                     f"CUDA GPUs and the cluster has {gpus:g}; pass "
                     f"device='cpu' to learn on the CPU")
+        timeout_s = self._reform_timeout_s if self.elastic else 300.0
+        deadline = time.monotonic() + timeout_s
         gang_env = gang_runtime_env("RAY_TPU_LEARNER_GANG")
-        master = f"127.0.0.1:{free_port()}"
+        # fresh heartbeat channel per generation: stale rows from a
+        # torn-down gang never shadow the new one
         self._gang_uid = f"learner:{uuid.uuid4().hex[:8]}"
         actor_cls = ray_tpu_torch.remote(_MeshLearnerActor)
         actors = [
-            actor_cls.options(num_cpus=1, num_gpus=1 if on_card else 0,
+            actor_cls.options(num_cpus=1, num_gpus=1 if self._on_card else 0,
                               runtime_env=gang_env).remote(
                 self._factory, rank, self._gang_uid)
             for rank in range(world)
@@ -201,15 +281,19 @@ class LearnerGroup:
         # Barrier on gang readiness (every rank blocks in
         # init_process_group until all peers are up). On failure the
         # attempt's actors die HERE: a leaked rank would sit in the
-        # rendezvous holding its CPU and card.
+        # rendezvous holding its CPU and card, making every smaller
+        # world size infeasible too.
         try:
             nodes = ray_tpu_torch.get([a.node_id.remote() for a in actors],
-                                      timeout=300)
+                                      timeout=deadline - time.monotonic())
+            master = ray_tpu_torch.get(
+                actors[0].open_store.remote(world, timeout_s),
+                timeout=deadline - time.monotonic())
             ray_tpu_torch.get([
                 a.setup.remote(local_rank, master, world, self._seed,
-                               on_card)
+                               self._on_card, timeout_s)
                 for a, local_rank in zip(actors, local_ranks(nodes))],
-                timeout=300)
+                timeout=deadline - time.monotonic())
         except BaseException:
             for a in actors:
                 try:
@@ -222,18 +306,77 @@ class LearnerGroup:
     def __len__(self) -> int:
         return max(1, self._num_learners)
 
+    # ---- elastic reconfiguration ------------------------------------
     def reconfigure(self, num_learners: Optional[int] = None,
                     reason: str = "manual") -> int:
-        raise NotImplementedError(_ELASTIC)
+        """Re-form the gang at `num_learners` (default: the target
+        world size) from the cached state; returns the achieved world
+        size. An explicit `num_learners` also becomes the new target.
+        Elastic gangs only."""
+        if not self.elastic:
+            raise RuntimeError("reconfigure() requires elastic mode "
+                               "(elastic_min_learners)")
+        if num_learners is not None:
+            # validate BEFORE persisting: a rejected target must not
+            # poison later worker_death recoveries
+            if num_learners < self._elastic_min:
+                raise ValueError(
+                    f"target {num_learners} below elastic_min_learners="
+                    f"{self._elastic_min}")
+            self._target_learners = num_learners
+        return self._elastic_reconfigure(
+            reason, target=num_learners or self._target_learners)
+
+    def _elastic_reconfigure(self, reason: str, target: int) -> int:
+        import ray_tpu_torch
+        if target < self._elastic_min:
+            raise ValueError(
+                f"target {target} below elastic_min_learners="
+                f"{self._elastic_min}")
+        rec = self._tracker.start(reason, world_size=len(self._actors))
+        try:
+            with rec.phase("drain"):
+                self._kill_gang()
+            with rec.phase("checkpoint") as attrs:
+                attrs["cached"] = self._ckpt_state is not None
+            achieved: Optional[int] = None
+            with rec.phase("reform"):
+                # step down toward the min when capacity is short; each
+                # attempt is bounded by elastic_reform_timeout_s
+                last_err: Optional[BaseException] = None
+                for world in range(target, self._elastic_min - 1, -1):
+                    try:
+                        self._actors = self._spawn_gang(world)
+                        achieved = world
+                        break
+                    except Exception as e:  # noqa: BLE001 - rendezvous
+                        last_err = e        # timeout / spawn failure
+                        self._kill_gang()
+                if achieved is None:
+                    raise RuntimeError(
+                        f"elastic learner re-form infeasible: no world "
+                        f"size in [{self._elastic_min}, {target}] "
+                        f"became ready within "
+                        f"{self._reform_timeout_s:.0f}s per attempt "
+                        f"({last_err!r})")
+            self._num_learners = achieved
+            with rec.phase("reshard", world_size=achieved):
+                if self._ckpt_state is not None:
+                    ray_tpu_torch.get(
+                        [a.set_state.remote(self._ckpt_state)
+                         for a in self._actors], timeout=600)
+            with rec.phase("resume"):
+                pass  # the caller's retried update is the resume
+            rec.finish(achieved)
+            return achieved
+        except BaseException as e:
+            rec.abort(e)
+            raise
 
     def _kill_gang(self) -> None:
+        """Kill every rank (a re-form's drain: a surviving rank may sit in
+        a collective its dead peer never joins, so nothing waits on it)."""
         import ray_tpu_torch
-        if self._actors:
-            try:
-                ray_tpu_torch.get([a.shutdown.remote()
-                                   for a in self._actors], timeout=60)
-            except Exception:  # noqa: BLE001 - ranks may already be dead
-                pass
         for a in self._actors:
             try:
                 ray_tpu_torch.kill(a)
@@ -253,21 +396,54 @@ class LearnerGroup:
                minibatch_size: Optional[int] = None,
                num_iters: int = 1, seed: int = 0) -> Dict[str, float]:
         from ray_tpu_torch._private import goodput
-        with goodput.bucket(goodput.PRODUCTIVE):
-            if self._local is not None:
+        if self._local is not None:
+            with goodput.bucket(goodput.PRODUCTIVE):
                 return self._local.update(batch, minibatch_size,
                                           num_iters, seed)
-            return self._update_remote(batch, minibatch_size, num_iters,
-                                       seed)
+        try:
+            with goodput.bucket(goodput.PRODUCTIVE):
+                return self._update_remote(batch, minibatch_size,
+                                           num_iters, seed)
+        except Exception as e:  # noqa: BLE001 - a rank died mid-update
+            from ray_tpu_torch.exceptions import RayTaskError
+            from ray_tpu_torch.train.backend_executor import GangWedgedError
+            if not self.elastic or isinstance(e, RayTaskError):
+                # a RayTaskError means the update RAN and raised: an
+                # application error that a re-form would only replay;
+                # only infrastructure failures (a dead rank, a lost
+                # worker, a timeout, a wedge) reconfigure
+                raise
+            logger.warning(
+                "elastic learner gang update failed (%r); "
+                "reconfiguring and retrying", e)
+            # aim back at the TARGET, not the achieved size: a gang
+            # that degraded must try for the target again when capacity
+            # returns, not ratchet down toward the minimum
+            self._elastic_reconfigure(
+                "wedge" if isinstance(e, GangWedgedError)
+                else "worker_death",
+                target=self._target_learners)
+            with goodput.bucket(goodput.PRODUCTIVE):
+                return self._update_remote(batch, minibatch_size,
+                                           num_iters, seed)
 
     def _update_remote(self, batch, minibatch_size, num_iters, seed):
         import ray_tpu_torch
         # Same full batch + same seed to every rank: each slices its own
         # equal shard and all ranks enter the collective step the same
-        # number of times.
-        refs = [a.update.remote(batch, minibatch_size, num_iters, seed)
+        # number of times. The batch goes into the object store once: a
+        # task carrying it inline is serialized once a rank, and its send
+        # blocks the driver while the rank's process is stopped (a wedge
+        # the supervisor below must see, not wait behind).
+        batch_ref = ray_tpu_torch.put(batch)
+        refs = [a.update.remote(batch_ref, minibatch_size, num_iters, seed)
                 for a in self._actors]
-        stats = ray_tpu_torch.get(refs, timeout=600)
+        if self.elastic:
+            # wedge-aware wait: a rank SIGSTOPped inside the all-reduce
+            # otherwise blocks every peer for the full 600 s get
+            stats = self._await_update(refs, timeout=600)
+        else:
+            stats = ray_tpu_torch.get(refs, timeout=600)
         # each rank's scalar stats are means over its shard; equal shards
         # make their mean the global one (grad_norm is the same on every
         # rank); array stats (per-sample TD errors and their batch
@@ -278,7 +454,103 @@ class LearnerGroup:
                 out[k] = np.concatenate([np.asarray(s[k]) for s in stats])
             else:
                 out[k] = float(np.mean([s[k] for s in stats]))
+        if self.elastic:
+            # refresh the durable fallback: the state every rank holds
+            # after this (replicated) step, what a reconfiguration
+            # reshards from (a failed fetch just leaves the older cache)
+            self._updates_since_refresh += 1
+            if self._updates_since_refresh >= self._state_refresh_every:
+                try:
+                    self._ckpt_state = ray_tpu_torch.get(
+                        self._actors[0].get_state.remote(), timeout=600)
+                    self._updates_since_refresh = 0
+                except Exception:  # noqa: BLE001 - the NEXT update's
+                    pass           # failure path uses the older cache
         return out
+
+    # ---- collective-wedge supervisor (train/heartbeat.py) -----------
+    def _await_update(self, refs: List[Any], timeout: float
+                      ) -> List[Any]:
+        """Await one update round with the wedge trip armed, the
+        learner-plane mirror of BackendExecutor._await_round. Short
+        wait slices; between slices the supervisor refreshes the gang
+        heartbeat table (which also carries the runtime step-deadline
+        override) and, once the deadline expires, checks staleness.
+        Two-factor trip: deadline expired AND >= 1 stale heartbeat;
+        every-rank-fresh-but-slow keeps waiting. On a trip the wedged
+        pids are hard-killed via their node managers and
+        GangWedgedError routes into _elastic_reconfigure with
+        reason="wedge". Round times feed the deadline calibrator."""
+        import time
+
+        import ray_tpu_torch
+        from ray_tpu_torch.train import heartbeat as hb
+        from ray_tpu_torch.train.backend_executor import GangWedgedError
+        t0 = time.monotonic()
+        hb_next = 0.0
+        override: Optional[float] = None
+        while True:
+            ready, pending = ray_tpu_torch.wait(
+                refs, num_returns=len(refs), timeout=self.WEDGE_POLL_S)
+            if not pending:
+                stats = ray_tpu_torch.get(  # graftlint: disable=RT002
+                    refs, timeout=60)
+                self._step_deadline.observe(time.monotonic() - t0)
+                return stats
+            now = time.monotonic()
+            if now - t0 > timeout:
+                raise TimeoutError(
+                    f"no learner update round within {timeout:.0f}s")
+            if now < hb_next:
+                continue
+            hb_next = now + self.WEDGE_HB_REFRESH_S
+            reply = self._query_heartbeats()
+            if reply is None:
+                continue
+            if reply.get("step_deadline_override_s") is not None:
+                override = reply["step_deadline_override_s"]
+            deadline = self._step_deadline.current(override)
+            if deadline is None or now - t0 < deadline:
+                continue
+            from ray_tpu_torch._private.config import Config
+            stale = hb.stale_ranks(reply,
+                                   Config.watchdog_gang_heartbeat_s)
+            if not stale:
+                continue  # slow but every rank alive: keep waiting
+            from ray_tpu_torch._private import spans
+            cls = hb.classify_wedge(reply, stale)
+            spans.instant(
+                "elastic.wedge_detect", gang=self._gang_uid,
+                classification=cls["kind"],
+                ranks=",".join(str(r) for r in cls["ranks"]),
+                nodes=",".join(n[:12] for n in cls["nodes"]),
+                deadline_s=round(deadline, 3),
+                waited_s=round(now - t0, 3))
+            logger.error(
+                "elastic learner: step deadline %.1fs expired after "
+                "%.1fs with stale heartbeat(s) from rank(s) %s (%s); "
+                "hard-killing wedged processes and re-forming",
+                deadline, now - t0, cls["ranks"], cls["kind"])
+            killed = hb.hard_kill_ranks(stale)
+            raise GangWedgedError(
+                f"learner rank(s) {cls['ranks']} wedged mid-update "
+                f"({cls['kind']}): step deadline {deadline:.1f}s "
+                f"expired with heartbeats "
+                f"{[round(r['age_s'], 1) for r in stale]}s stale; "
+                f"hard-killed ranks {killed} via their node managers")
+
+    def _query_heartbeats(self) -> Optional[Dict[str, Any]]:
+        if self._gang_uid is None:
+            return None
+        from ray_tpu_torch.train import heartbeat as hb
+        from ray_tpu_torch.train.elastic import _core_worker_or_none
+        cw = _core_worker_or_none()
+        if cw is None:
+            return None
+        try:
+            return hb.query_gang(cw._gcs.call, self._gang_uid)
+        except Exception:  # noqa: BLE001 - GCS hiccup: retry next slice
+            return None
 
     def additional_update(self, **kwargs) -> Dict[str, Any]:
         if self._local is not None:
@@ -328,6 +600,17 @@ class LearnerGroup:
         import ray_tpu_torch
         ray_tpu_torch.get([a.set_state.remote(state) for a in self._actors],
                           timeout=600)
+        if self.elastic:
+            self._ckpt_state = state
 
     def shutdown(self) -> None:
+        import ray_tpu_torch
+        if self._actors:
+            try:  # each rank destroys its process group before it dies
+                ray_tpu_torch.get([a.shutdown.remote()
+                                   for a in self._actors], timeout=60)
+            except Exception:  # noqa: BLE001 - ranks may already be dead
+                pass
         self._kill_gang()
+        if self._tracker is not None:
+            self._tracker.close()

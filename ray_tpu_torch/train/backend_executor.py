@@ -108,8 +108,20 @@ class BackendExecutor:
 
     # ---- lifecycle --------------------------------------------------
     def start(self) -> None:
-        self._form_group()
-        self._mesh_init()
+        """Form the gang and its process group. A worker that dies while
+        the gang forms spends the failure budget, as one that dies a
+        step later does (the JAX package's start() lets the error out of
+        fit() whatever the budget)."""
+        while True:
+            try:
+                self._form_group()
+                self._mesh_init()
+                return
+            except TrainingWorkerError:
+                raise  # infeasible formation: a clear terminal verdict
+            except Exception as e:  # noqa: BLE001 - a worker died
+                self._teardown_group()
+                self._spend_failure(e, "forming the gang again")
 
     def _form_group(self, settle_s: Optional[float] = None) -> None:
         """Create the worker gang + rank contexts (+ GPU visibility).
@@ -215,14 +227,19 @@ class BackendExecutor:
             "datasets": datasets,
         }
         self._latest_checkpoint_dir = checkpoint_dir
-        if checkpoint_dir is not None:
-            # resuming a prior run: session init re-reads model state
-            # from the durable checkpoint on every rank
-            with goodput.bucket("checkpoint_restore"):
+        try:
+            if checkpoint_dir is not None:
+                # resuming a prior run: session init re-reads model state
+                # from the durable checkpoint on every rank
+                with goodput.bucket("checkpoint_restore"):
+                    self._init_sessions(checkpoint_dir)
+            else:
                 self._init_sessions(checkpoint_dir)
-        else:
-            self._init_sessions(checkpoint_dir)
-        self._start_sessions()
+            self._start_sessions()
+        except TrainingWorkerError:
+            raise
+        except Exception as e:  # noqa: BLE001 - a worker died before
+            self._handle_failure(e)  # its first step: restart budget
 
     def _init_sessions(self, checkpoint_dir: Optional[str]) -> None:
         """Session setup on every rank: backend training hook, dataset
@@ -473,19 +490,10 @@ class BackendExecutor:
         # re-form window): recovery failures spend the same restart
         # budget instead of aborting the run on the first unlucky race
         while True:
-            self._num_failures += 1
-            if self._max_failures >= 0 and \
-                    self._num_failures > self._max_failures:
-                raise TrainingWorkerError(
-                    f"training failed after {self._num_failures - 1} "
-                    f"restart(s): {error!r}") from error
-            logger.warning(
-                "train worker failure %d/%s (%r); %s from latest "
-                "checkpoint", self._num_failures,
-                self._max_failures if self._max_failures >= 0 else "inf",
-                error,
-                "reconfiguring gang" if self._elastic
-                else "restarting group")
+            self._spend_failure(
+                error, "reconfiguring gang from latest checkpoint"
+                if self._elastic else "restarting group from latest "
+                "checkpoint")
             try:
                 if self._elastic:
                     self._reconfigure(
@@ -498,6 +506,20 @@ class BackendExecutor:
                 raise  # infeasible re-form: a clear terminal verdict
             except Exception as e:  # noqa: BLE001 - recovery raced a
                 error = e           # new death; retry on budget
+
+    def _spend_failure(self, error: BaseException, then: str) -> None:
+        """Spend one failure of the restart budget on `error`; raise
+        TrainingWorkerError once the budget is spent, else log `then`."""
+        self._num_failures += 1
+        if self._max_failures >= 0 and \
+                self._num_failures > self._max_failures:
+            raise TrainingWorkerError(
+                f"training failed after {self._num_failures - 1} "
+                f"restart(s): {error!r}") from error
+        logger.warning(
+            "train worker failure %d/%s (%r); %s", self._num_failures,
+            self._max_failures if self._max_failures >= 0 else "inf",
+            error, then)
 
     def _reconfigure(self, reason: str) -> None:
         """One elastic reconfiguration: drain -> checkpoint -> reform ->

@@ -8,7 +8,9 @@ planted on that row fail. Phase "serve"'s scoring gives a padded prompt
 its own forward's answer, and its bars accept and reject as stated.
 Phase "ops"'s answers keep their values through the numpy form they
 cross the thin client's proxy in, and its process reader finds a line,
-fails on an early exit and ends a process with SIGTERM."""
+fails on an early exit and ends a process with SIGTERM. Phase
+"elastic" runs last, and its checks of the ranks' records accept a
+2 -> 1 -> 2 drill and reject each fault they name."""
 
 import importlib.util
 from pathlib import Path
@@ -225,3 +227,103 @@ def test_ops_process_reader(tmp_path):
     with pytest.raises(AssertionError, match="exited 0"):
         quick.wait_for("READY", 60)
 
+
+
+# ---- phase "elastic" ------------------------------------------------------------
+
+def test_elastic_phase_runs_last_and_is_documented():
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main("):src.index("def thread_cpu_s(")]
+    order = [main.index(f'phase("{p}")') for p in ("ops", "elastic")]
+    assert order == sorted(order)
+    assert main.index('phase("elastic")') > max(
+        main.index(f'phase("{p}")') for p in ("slice", "trainer", "tune"))
+    assert '["launches_by_path"]["elastic"]' in main
+    assert " 17. elastic:" in chip_smoke.__doc__
+
+
+def _drill(n_layers=12, vocab=50304):
+    """Records of a 2 -> 1 -> 2 drill as elastic_loop writes them: world 2
+    to step 14, the kill, world 1 from the checkpoint after step 9, world
+    2 again from the checkpoint after step 19."""
+    records, clock = [], iter(range(10 ** 6))
+    first = float(np.log(vocab))
+
+    def steps(world, start, stop):
+        for s in range(start, stop):
+            for rank in range(world):
+                rec = {"rank": rank, "world": world, "time": next(clock),
+                       "step": s, "loss": first - 2e-3 * s,
+                       "step_ms": 50.0, "rows": 16 // world,
+                       "peak_gib": 13.0,
+                       "launches": {n: n_layers
+                                    for n in chip_smoke.KERNEL_SOURCES}}
+                if rank == 0:
+                    rec["full_loss"] = first - 1e-3 * s
+                    rec["eval_launches"] = {
+                        n: n_layers if n == "flash_fwd" else 0
+                        for n in chip_smoke.KERNEL_SOURCES}
+                records.append(rec)
+
+    def resume(world, at):
+        for rank in range(world):
+            records.append({"rank": rank, "world": world,
+                            "time": next(clock), "resume": at, "load_s": 1.0,
+                            "params_equal": True, "adam_equal": True,
+                            "adam_steps": [at]})
+
+    steps(2, 0, 15)
+    resume(1, 10)
+    steps(1, 10, 23)
+    resume(2, 20)
+    steps(2, 20, 26)
+    return records
+
+
+def test_elastic_checks_accept_a_drill():
+    assert chip_smoke.check_elastic_records(_drill(), 12, 50304) == [2, 1, 2]
+
+
+def _fault(name):
+    records = _drill()
+    steps = [r for r in records if "step" in r]
+    resumes = [r for r in records if "resume" in r]
+    if name == "no re-grow":
+        return [r for r in records if r["time"] < resumes[-1]["time"]]
+    if name == "a fresh start":
+        for r in steps:
+            if r["world"] == 1:
+                r["step"] -= 10
+        return records
+    if name == "params off the checkpoint":
+        resumes[0]["params_equal"] = False
+    elif name == "AdamW's step off the resume step":
+        resumes[-1]["adam_steps"] = [19]
+    elif name == "a re-run loss 6% off":
+        next(r for r in steps if r["world"] == 1)["full_loss"] += \
+            0.06 * float(np.log(50304))
+    elif name == "11 launches of dq":
+        steps[-1]["launches"] = dict(steps[-1]["launches"], flash_bwd_dq=11)
+    elif name == "no launch counted":
+        steps[3]["launches"] = {}
+    elif name == "a backward launch in the evaluation":
+        steps[0]["eval_launches"] = dict(steps[0]["eval_launches"],
+                                         flash_bwd_dq=1)
+    elif name == "a first loss off ln(vocab)":
+        steps[0]["full_loss"] += 0.6
+    elif name == "a loss that does not fall":
+        for r in steps:
+            if "full_loss" in r:
+                r["full_loss"] = float(np.log(50304))
+    return records
+
+
+@pytest.mark.parametrize("name", [
+    "no re-grow", "a fresh start", "params off the checkpoint",
+    "AdamW's step off the resume step", "a re-run loss 6% off",
+    "11 launches of dq", "no launch counted",
+    "a backward launch in the evaluation", "a first loss off ln(vocab)",
+    "a loss that does not fall"])
+def test_elastic_checks_reject(name):
+    with pytest.raises(AssertionError):
+        chip_smoke.check_elastic_records(_fault(name), 12, 50304)

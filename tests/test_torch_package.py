@@ -72,12 +72,15 @@ def test_fresh_import_pulls_in_no_jax_and_no_ray_tpu():
                                     "ray_tpu_torch.job",
                                     "ray_tpu_torch.workflow",
                                     "ray_tpu_torch.dashboard",
-                                    "ray_tpu_torch.scripts.cli"])
+                                    "ray_tpu_torch.scripts.cli",
+                                    "ray_tpu_torch.autoscaler",
+                                    "ray_tpu_torch.tools.chaos_sweep"])
 def test_data_tune_collective_import_alone_without_jax(module):
     """Each of Data, Tune, the host collectives, Serve, the lazy task
     graphs, trace propagation, the thin client, jobs, workflows, the
-    dashboard and the CLI, imported alone in a fresh process, loads its
-    modules and no jax, optax or ray_tpu."""
+    dashboard, the CLI, the autoscaler and the chaos sweep, imported
+    alone in a fresh process, loads its modules and no jax, optax or
+    ray_tpu."""
     code = (f"import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             f"print('MODS', len([n for n in sys.modules "
@@ -198,10 +201,25 @@ def test_rllib_registry_lists_the_jax_registry():
 
 
 def test_rllib_unported_paths_raise_naming_roadmap():
-    """Elastic learner gangs are the one RLlib path left that raises."""
+    """No RLlib path raises NotImplementedError any more; an elastic
+    learner gang (the last that did) checks its bounds before it spawns
+    a rank, as the JAX package's does."""
     from ray_tpu_torch.rllib import LearnerGroup
-    with pytest.raises(NotImplementedError, match="ROADMAP.*elastic"):
-        LearnerGroup(lambda: None, num_learners=2, elastic_min_learners=1)
+    for kw, match in (
+            ({"num_learners": 2, "elastic_min_learners": 3},
+             r"elastic_min_learners=3 not in \[1, num_learners=2\]"),
+            ({"num_learners": 2, "elastic_min_learners": 0},
+             "elastic_min_learners=0 not in"),
+            ({"num_learners": 0, "elastic_min_learners": 1},
+             "requires a remote gang"),
+            ({"num_learners": 2, "elastic_min_learners": 1,
+              "step_deadline_s": 0.0}, "step_deadline_s must be > 0"),
+            ({"num_learners": 2, "elastic_min_learners": 1,
+              "state_refresh_every": 0}, "state_refresh_every")):
+        with pytest.raises(ValueError, match=match):
+            LearnerGroup(lambda: None, **kw)
+    src = (PKG / "rllib" / "core" / "learner_group.py").read_text()
+    assert "NotImplementedError" not in src
 
 
 def test_rllib_once_unported_paths_build(tmp_path):

@@ -11,7 +11,8 @@ learner gang whose update equals a local learner's on the same batch
 (params at rtol 1e-5 with an atol of 1e-5 times the learning rate: the
 gang's grad is the mean of two half-batch grads). The transition ring
 survives a record() re-entered from a finalizer on its own thread, where
-the JAX package's copy of the class waits forever.
+the JAX package's copy of the class waits forever. One seed of the port's
+chaos sweep, --schedule replay, in a process of its own.
 """
 
 import collections
@@ -251,3 +252,28 @@ def test_two_rank_gloo_dqn_update_equals_one_rank(cluster):
                 np.testing.assert_array_equal(s["target_params"][k], v)
     finally:
         group.shutdown()
+
+
+# ---- the port's chaos sweep, --schedule replay ---------------------------------
+
+def test_chaos_sweep_replay_smoke():
+    """tests/test_replay_plane.py's one-seed replay drill on the port: a
+    shard killed after 10 pushes and RPC delays and drops, through which
+    DQN keeps training (python -m ray_tpu_torch.tools.chaos_sweep, the
+    learner on the CPU)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.tools.chaos_sweep",
+         "--schedule", "replay", "--device", "cpu", "--format", "json",
+         "--seeds", "1", "--timeout", "300"],
+        capture_output=True, text=True, timeout=420, cwd=repo)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert lines, proc.stdout[-2000:] + proc.stderr[-2000:]
+    out = json.loads(lines[-1])
+    assert out["schedule"] == "replay"
+    assert out["failed_seeds"] == [], out
+    assert out["results"][0]["fired"] >= 1

@@ -236,17 +236,19 @@ def test_impala_gloo_gang_matches_local_learner(cluster):
                            ).astype(np.float32),
         "bootstrap_value": rng.standard_normal(b).astype(np.float32),
     }
-    deadline = time.time() + 60
     local = LearnerGroup(factory, num_learners=0, seed=5)
     s_local = [local.update(dict(batch)) for _ in range(3)]
     w_local = local.get_weights()
+    # the spawn is bounded by the gang's own gets on its ranks; the wall
+    # clock bounds the three updates and the weights' fetch
     gang = LearnerGroup(factory, num_learners=2, seed=5)
     try:
+        deadline = time.time() + 60
         s_gang = [gang.update(dict(batch)) for _ in range(3)]
         w_gang = gang.get_weights()
+        assert time.time() < deadline
     finally:
         gang.shutdown()
-    assert time.time() < deadline
     # local: update 1's stats twice, then update 2's; gang: 1, 2, 3
     for got, want in ((s_gang[0], s_local[0]), (s_gang[0], s_local[1]),
                       (s_gang[1], s_local[2])):

@@ -121,6 +121,8 @@ VERBATIM = [
     "client/server.py", "client/__init__.py", "workflow/__init__.py",
     "dashboard/metrics.py", "dashboard/head.py", "dashboard/__init__.py",
     "scripts/__init__.py", "scripts/cli.py", "__main__.py",
+    "autoscaler/__init__.py", "autoscaler/autoscaler.py",
+    "autoscaler/demand_scheduler.py", "autoscaler/v2.py",
 ]
 
 # the lines a copy repairs (reference text -> the port's), each a fault of
