@@ -60,7 +60,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      why), then one full update's mean total_loss (1e-3 relative); (2)
      ray_tpu_torch.init() and PPOConfig().build() with the learner local
      on the card and R = min(32, cores - 2) (at least 2) CPU EnvRunner
-     actors, 3 iterations of algo.train(), each timed (iteration,
+     actors, RL_ITERS iterations of algo.train(), each timed (iteration,
      sampling, and the learner update between CUDA syncs): the learner's
      params on CUDA, no runner with CUDA initialised, finite stats, env
      steps trained equal to the batch's rows, and the runners holding the
@@ -388,6 +388,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
      with --elastic-learners), beside part 1, with a cluster of its own.
      launches_by_path "elastic" sums part 1's rank-steps and rank 0's
      evaluations.
+ 18. examples: ray_tpu_torch.examples.train_gpt2_torch, the counterpart
+     of examples/train_gpt2_jax.py, as a user runs it: its main() (its
+     own ray_tpu_torch.init(), a one-worker TorchTrainer holding the
+     card, NCCL) at phase 5's configuration, EXAMPLE_STEPS steps of its
+     8 rows of 1,025 tokens through make_train_step with
+     Transformer.param_specs on a data mesh (the sharded step) and
+     AdamW(3e-4). Its train loop is wrapped (example_loop) so that each
+     report also carries the worker's flash launches since the loop
+     began, the time and the peak memory. Every loss finite, the first
+     ln(vocab) +/- 0.5, the last below the first; n_layers launches of
+     each kernel a step (the forward twice that under remat). Prints the
+     step's median ms, tokens/s and the peak memory. launches_by_path
+     "examples" is the run's total.
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -471,9 +484,10 @@ SENTINEL_COST = 1.02      # installed median / uninstalled median, at most
 # the GPT-2 and Llama steps; on the rest the host's noise moves the
 # medians more than it (PERF.md §6), and they are printed, from
 # PRINTED_COST_CALLS calls each (20 before phase "elastic" joined the
-# script: the depth cut that keeps it within its time)
+# script, 5 before phase "examples": the depth cuts that keep it within
+# its time)
 COST_CALLS = 20
-PRINTED_COST_CALLS = 5
+PRINTED_COST_CALLS = 3
 STEP_FORCED_BYTES = 0
 TRACE_KERNELS = {"flash_fwd": "fwd_kernel", "flash_bwd_dkv": "dkv_kernel",
                  "flash_bwd_dq": "dq_kernel"}
@@ -1039,6 +1053,12 @@ def main(argv=None) -> int:
             records[name]["launches_by_path"]["elastic"] = \
                 elastic_launches[name]
 
+    with phase("examples"):
+        example_launches = run_examples(cfg, kind, smi)
+        for name in records:
+            records[name]["launches_by_path"]["examples"] = \
+                example_launches[name]
+
     # after the runs, so that a spill does not hide what the kernels do
     spilled = {src: n for src, n in spills.items()
                if src in HOPPER_SOURCES and n}
@@ -1386,7 +1406,8 @@ PONG_PPO = dict(train_batch_size=5000, minibatch_size=500, num_epochs=10,
                 lambda_=0.95, kl_coeff=0.5)
 PONG_ENVS, PONG_FRAGMENT = 5, 20        # envs a runner, rollout fragment
 PONG_OBS, PONG_ACTIONS = (84, 84, 4), 3  # MiniPong-v0
-RL_ITERS = 3
+# MiniPong iterations of (2) (3 before phase "examples" joined the script)
+RL_ITERS = 2
 # A grad on the card is held to the CPU's f32 grad at GRAD_RTOL relative
 # norm, or, where that f32 grad is itself further than that from the f64
 # grad (the conv grads of a PPO minibatch sum ~10^5 terms of random sign
@@ -1783,8 +1804,9 @@ IMPALA_UPDATES = 20
 # hands out every slot once before it reuses one
 FEED_BATCHES, FEED_SLOTS = 20, 8
 # wall seconds of algo.train() (30 and 15 before phase "elastic" joined
-# the script: the depth cut that keeps it within its time)
-IMPALA_S, APPO_S = 10.0, 5.0
+# the script, 10 and 5 before phase "examples": the depth cuts that keep
+# it within its time)
+IMPALA_S, APPO_S = 4.0, 3.0
 # IMPALA CartPole (rllib_learning_sweep.impala_cartpole_config, the bar
 # BAR within IMPALA_ITERS iterations): the asynchronous path's sample
 # order is not deterministic, so one seed proves nothing; over seeds 0-19
@@ -2202,10 +2224,11 @@ REPLAY_RUNNERS, REPLAY_FRAGMENT = 2, 32
 REPLAY_SHARDS, REPLAY_CAPACITY = 2, 25_000
 REPLAY_S = 30.0
 # iterations timed after learning starts: prioritized DQN, and SAC, TD3
-# and DDPG on Pendulum
-PRIORITIZED_ITERS = 30
-# SAC and TD3 took 30 before phase "elastic" joined the script
-CONTINUOUS_ITERS = {"SAC": 15, "TD3": 15, "DDPG": 5}
+# and DDPG on Pendulum (prioritized DQN took 30 before phase "examples"
+# joined the script; SAC and TD3 30 before phase "elastic", 15 before
+# "examples")
+PRIORITIZED_ITERS = 15
+CONTINUOUS_ITERS = {"SAC": 5, "TD3": 5, "DDPG": 5}
 # the bytes a local update forces to the host: its stats, one f64 block
 # (Learner.update's sweep_stats) of the scalars (DQN 5, SAC 8, TD3 5)
 # and the last minibatch's per-row arrays (DQN td_error, td_indexes,
@@ -6005,6 +6028,100 @@ def elastic_learners(torch, kind, smi):
         raise AssertionError(f"the learners launched flash kernels: local "
                              f"{dict(fa.launches)}, the gang's ranks {ranks}")
     print(f"  part 2 {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# phase "examples": the GPT-2 example's steps (the JAX script's 10) and the
+# steps its step time is taken over (the first ones build and warm up)
+EXAMPLE_STEPS = 10
+EXAMPLE_WARMUP = 3
+EXAMPLE_ROWS = 8    # the example's batch (train_gpt2_torch.train_loop)
+
+
+def example_loop(loop):
+    """`loop` (the example's train loop), with each of its reports
+    carrying this worker's flash launches since the loop began, the time
+    and the peak device memory."""
+    def counted(config):
+        import torch
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        report = train.report
+
+        def report_counted(metrics, **kwargs):
+            report({**metrics, "launches": dict(fa.launches),
+                    "time": time.perf_counter(),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30},
+                   **kwargs)
+
+        fa.reset_launches()
+        train.report = report_counted
+        try:
+            loop(config)
+        finally:
+            train.report = report
+    return counted
+
+
+def check_example_records(history, cfg, steps):
+    """Phase "examples"'s gates on the reports of the example's run (each
+    a step's): the steps in order, every loss finite, the first
+    ln(vocab) +/- 0.5, the last below the first, and after step i the
+    launches of (i + 1) steps: n_layers of each kernel a step, the
+    forward twice that under remat. Returns the run's launches."""
+    if [m.get("step") for m in history] != list(range(steps)):
+        raise AssertionError(f"the example reported steps "
+                             f"{[m.get('step') for m in history]}")
+    losses = [m["loss"] for m in history]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"initial loss {losses[0]} is not near "
+                             f"ln({cfg.vocab_size})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss does not fall: {losses}")
+    a_step = {"flash_fwd": cfg.n_layers * (2 if cfg.remat else 1),
+              "flash_bwd_dkv": cfg.n_layers, "flash_bwd_dq": cfg.n_layers}
+    for i, m in enumerate(history):
+        want = {n: k * (i + 1) for n, k in a_step.items()}
+        if m["launches"] != want:
+            raise AssertionError(f"after step {i}: launches "
+                                 f"{m['launches']}, expected {want}")
+    return history[-1]["launches"]
+
+
+def run_examples(cfg, kind, smi):
+    """Phase "examples": train_gpt2_torch.main at `cfg` on the card, its
+    loop counted by example_loop; checks the run's reports and returns
+    its launch counts."""
+    from ray_tpu_torch.examples import train_gpt2_torch as example
+
+    loop = example.train_loop
+    example.train_loop = example_loop(loop)   # what main() hands the trainer
+    try:
+        t0 = time.perf_counter()
+        result = example.main(model=cfg, steps=EXAMPLE_STEPS)
+        main_s = time.perf_counter() - t0
+    finally:
+        example.train_loop = loop
+    if result.error is not None:
+        raise AssertionError(f"the example's run failed: {result.error!r}")
+    history = result.metrics_history
+    launches = check_example_records(history, cfg, EXAMPLE_STEPS)
+    times = [m["time"] for m in history]
+    step_s = sorted(b - a for a, b in zip(times[EXAMPLE_WARMUP - 1:],
+                                          times[EXAMPLE_WARMUP:]))
+    median = step_s[len(step_s) // 2]
+    print(f"  main() {main_s:.2f} s; losses "
+          f"{['%.4f' % m['loss'] for m in history]}", flush=True)
+    print(f"  example step {median * 1e3:.2f} ms (median of steps "
+          f"{EXAMPLE_WARMUP + 1}-{EXAMPLE_STEPS}, a loss read each), "
+          f"{EXAMPLE_ROWS * cfg.max_seq_len / median:.1f} tokens/s, peak "
+          f"memory "
+          f"{max(m['peak_gib'] for m in history):.2f} GiB, launches "
+          f"{launches}; {kind}; {smi}", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

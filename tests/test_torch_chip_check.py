@@ -9,8 +9,11 @@ its own forward's answer, and its bars accept and reject as stated.
 Phase "ops"'s answers keep their values through the numpy form they
 cross the thin client's proxy in, and its process reader finds a line,
 fails on an early exit and ends a process with SIGTERM. Phase
-"elastic" runs last, and its checks of the ranks' records accept a
-2 -> 1 -> 2 drill and reject each fault they name."""
+"elastic"'s checks of the ranks' records accept a 2 -> 1 -> 2 drill and
+reject each fault they name. Phase "examples" runs last; its checks of
+the GPT-2 example's reports accept a run (with and without remat) and
+reject each fault they name, and its wrapper of the example's loop adds
+the launches, the time and the peak memory to each report."""
 
 import importlib.util
 from pathlib import Path
@@ -327,3 +330,89 @@ def _fault(name):
 def test_elastic_checks_reject(name):
     with pytest.raises(AssertionError):
         chip_smoke.check_elastic_records(_fault(name), 12, 50304)
+
+
+# ---- phase "examples" -----------------------------------------------------------
+
+def test_examples_phase_runs_last_and_is_documented():
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main("):src.index("def thread_cpu_s(")]
+    phases = [line.split('phase("')[1].split('"')[0]
+              for line in main.splitlines() if 'with phase("' in line]
+    assert phases[-2:] == ["elastic", "examples"], phases
+    assert '["launches_by_path"]["examples"]' in main
+    assert " 18. examples:" in chip_smoke.__doc__
+
+
+def _example_history(cfg, steps=10):
+    """Reports of the example's run as example_loop makes them."""
+    fwd = cfg.n_layers * (2 if cfg.remat else 1)
+    first = float(np.log(cfg.vocab_size))
+    return [{"step": i, "loss": first - 0.05 * i, "time": 1.0 + 0.1 * i,
+             "peak_gib": 12.0,
+             "launches": {"flash_fwd": fwd * (i + 1),
+                          "flash_bwd_dkv": cfg.n_layers * (i + 1),
+                          "flash_bwd_dq": cfg.n_layers * (i + 1)}}
+            for i in range(steps)]
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_example_checks_accept_a_run(remat):
+    cfg = chip_smoke.slice_config().replace(remat=remat)
+    got = chip_smoke.check_example_records(_example_history(cfg), cfg, 10)
+    assert got == {"flash_fwd": 12 * (2 if remat else 1) * 10,
+                   "flash_bwd_dkv": 120, "flash_bwd_dq": 120}
+
+
+@pytest.mark.parametrize("fault", [
+    "a step missing", "a NaN loss", "a first loss off ln(vocab)",
+    "a loss that does not fall", "11 launches of dq in a step",
+    "no launch counted", "the forward once a layer under remat"])
+def test_example_checks_reject(fault):
+    cfg = chip_smoke.slice_config()
+    history = _example_history(cfg)
+    if fault == "a step missing":
+        del history[4]
+    elif fault == "a NaN loss":
+        history[3]["loss"] = float("nan")
+    elif fault == "a first loss off ln(vocab)":
+        history[0]["loss"] += 0.6
+    elif fault == "a loss that does not fall":
+        history[-1]["loss"] = history[0]["loss"]
+    elif fault == "11 launches of dq in a step":
+        for m in history[5:]:
+            m["launches"] = dict(m["launches"],
+                                 flash_bwd_dq=m["launches"]["flash_bwd_dq"]
+                                 - 1)
+    elif fault == "no launch counted":
+        for m in history:
+            m["launches"] = {n: 0 for n in m["launches"]}
+    elif fault == "the forward once a layer under remat":
+        cfg = cfg.replace(remat=True)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_example_records(history, cfg, 10)
+
+
+def test_example_loop_adds_launches_time_and_memory(monkeypatch):
+    """The wrapped loop's reports carry the launches since the loop began
+    (zeroed first), and the report in place is the loop's again after."""
+    from ray_tpu_torch import train
+    got = []
+    monkeypatch.setattr(train, "report",
+                        lambda metrics, **kw: got.append(metrics))
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 2**30)
+    before = train.report
+    pflash.launches["flash_fwd"] = 5
+
+    def loop(config):
+        import ray_tpu_torch.train as t
+        for i in range(config["steps"]):
+            pflash.launches["flash_fwd"] += 12
+            t.report({"step": i})
+
+    chip_smoke.example_loop(loop)({"steps": 2})
+    assert train.report is before
+    assert [m["step"] for m in got] == [0, 1]
+    assert [m["launches"]["flash_fwd"] for m in got] == [12, 24]
+    assert got[0]["peak_gib"] == 1.0 and got[1]["time"] >= got[0]["time"]
+    pflash.reset_launches()

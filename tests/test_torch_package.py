@@ -94,6 +94,39 @@ def test_data_tune_collective_import_alone_without_jax(module):
     assert int(out.stdout.split("MODS ")[1].split()[0]) >= 1
 
 
+TRAINER_LIBRARIES = ("sklearn", "tensorflow", "transformers", "accelerate",
+                     "yaml")
+
+
+def test_train_and_examples_import_without_the_trainers_libraries():
+    """As on the card's machine, where none of the extra trainers'
+    libraries is installed: ray_tpu_torch.train (with its six extra
+    names) and every example import, and pull in neither jax nor
+    ray_tpu."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"for m in {TRAINER_LIBRARIES!r}:\n"
+        "    sys.modules[m] = None\n"   # `import m` raises ImportError
+        "import ray_tpu_torch.train as train\n"
+        "import ray_tpu_torch.examples as examples\n"
+        "mods = [m.name for m in pkgutil.iter_modules(examples.__path__,\n"
+        "        'ray_tpu_torch.examples.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "print('EXAMPLES', len(mods))\n"
+        "print('NAMES', all(callable(getattr(train, n)) for n in (\n"
+        "    'SklearnTrainer', 'TensorflowConfig', 'TensorflowTrainer',\n"
+        "    'AccelerateTrainer', 'TransformersTrainer', 'prepare_trainer')))\n"
+        "print('BAD', sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'ray_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "EXAMPLES 14" in out.stdout, out.stdout
+    assert "NAMES True" in out.stdout, out.stdout
+    assert "BAD []" in out.stdout, out.stdout
+
+
 # the package's own sources; _build/ holds build outputs, never sources
 SOURCES = sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")
                  if "_build" not in p.relative_to(PKG).parts)

@@ -123,6 +123,8 @@ VERBATIM = [
     "scripts/__init__.py", "scripts/cli.py", "__main__.py",
     "autoscaler/__init__.py", "autoscaler/autoscaler.py",
     "autoscaler/demand_scheduler.py", "autoscaler/v2.py",
+    "train/sklearn_trainer.py", "train/tensorflow_trainer.py",
+    "train/accelerate_trainer.py", "train/transformers_trainer.py",
 ]
 
 # the lines a copy repairs (reference text -> the port's), each a fault of
