@@ -99,12 +99,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
      consumed by the feed, finite stats, the runners holding the
      learner's weights after a last sync; env steps sampled and trained
      a second, updates a second, the learner's busy share, the feed's
-     stats and the peak device memory printed; (4) APPO the same way for
-     APPO_S, mean_ratio within (0.2, 5); (5) IMPALA CartPole at
+     stats and the peak device memory printed, then the cluster's span
+     timeline (timeline(spans=True)) through
+     ray_tpu_torch.tools.perf_report over the learner thread: its
+     buckets (learner_compute, device_feed, rollout_wait, store_rpc,
+     idle, ...) printed, learner_compute above 0; (4) APPO the same way
+     for APPO_S, mean_ratio within (0.2, 5); (5) IMPALA CartPole at
      tests/test_rllib.py:139's config with the learner on the card, seeds
-     0-4: 150 within 250 iterations in all of them
-     (IMPALA_CARTPOLE_SEEDS says why). The path launches none of the
-     flash kernels (launches_by_path "impala", which must be 0).
+     0-4 side by side (one task a seed, with its 2 runner actors): 150
+     within 250 iterations in all of them (IMPALA_CARTPOLE_SEEDS says
+     why). The path launches none of the flash kernels
+     (launches_by_path "impala", which must be 0).
   9. llama: the sharded LM step at Llama-2-7B width as a user takes it:
      ray_tpu_torch.init(), then TorchTrainer(...).fit() with one worker a
      card (ScalingConfig(num_workers=torch.cuda.device_count())), whose
@@ -401,6 +406,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
      each kernel a step (the forward twice that under remat). Prints the
      step's median ms, tokens/s and the peak memory. launches_by_path
      "examples" is the run's total.
+ 19. entry (run after phase 16 and before phase 17):
+     ray_tpu_torch.entry.entry(), the counterpart of
+     __graft_entry__.py's, as a user calls it: the forward of GPT2_125M
+     (seed-0 params, attention_impl "dense" as the JAX config has it) on
+     its example tokens, zeros [4, 1024], and on random tokens from
+     SEED; then the same params and tokens through entry(GPT2_125M with
+     attention_impl "auto"). Logits f32, finite, [4, 1024, vocab]; the
+     dense route launches no kernel and the flash route 12 forward
+     launches and no backward one; each row, scored as phase 15 scores
+     a prompt, within phase 15's bars of the dense route's
+     (check_scores: the next-token log-probs' sum within SERVE_TOKEN_TOL
+     a token, the argmax after the last position where the dense
+     top-two gap is SERVE_GAP or more, and its log-prob), and the argmax
+     equal at every position where that gap is SERVE_GAP or more; on
+     the random tokens the mean next-token NLL ln(vocab) +/- 0.5. Each
+     route's forward ms printed. launches_by_path "entry" is the flash
+     route's total.
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -1046,6 +1068,11 @@ def main(argv=None) -> int:
         ops_launches = run_ops(torch, cfg, tokens, slice_first, kind, smi)
         for name in records:
             records[name]["launches_by_path"]["ops"] = ops_launches[name]
+
+    with phase("entry"):
+        entry_launches = run_entry(torch, fa, kind, smi)
+        for name in records:
+            records[name]["launches_by_path"]["entry"] = entry_launches[name]
 
     with phase("elastic"):
         elastic_launches = run_elastic(torch, cfg, tokens, kind, smi)
@@ -1815,6 +1842,8 @@ IMPALA_S, APPO_S = 4.0, 3.0
 # 0-4.
 IMPALA_CARTPOLE_SEEDS = tuple(range(5))
 IMPALA_CARTPOLE_MIN_REACHED = 5
+# runner actors of impala_cartpole_config, each seed's own
+IMPALA_CARTPOLE_RUNNERS = 2
 
 
 def impala_fragments(np, rng, n):
@@ -1847,12 +1876,20 @@ def run_impala(torch, kind, smi):
     root = tempfile.mkdtemp(prefix="chip_smoke_impala_")
     try:
         t0 = time.perf_counter()
-        ray_tpu_torch.init(num_cpus=runners + 1, _session_root=root)
+        # (5)'s seeds run side by side, a learner task and its runner
+        # actors a seed, one CPU each: the cluster's CPUs cover them
+        # (MiniPong's runners are R whatever the count)
+        cpus = max(runners + 1, len(IMPALA_CARTPOLE_SEEDS)
+                   * (1 + IMPALA_CARTPOLE_RUNNERS))
+        ray_tpu_torch.init(num_cpus=cpus, _session_root=root)
         print(f"  cluster start {time.perf_counter() - t0:.2f} s; "
-              f"R = {runners} CPU EnvRunner actors", flush=True)
+              f"R = {runners} CPU EnvRunner actors; {cpus} CPUs",
+              flush=True)
         run_async(torch, np, ImpalaConfig, IMPALA_S, runners, kind, smi)
+        learner_report(ray_tpu_torch, os.path.join(root, "spans.json"),
+                       kind, smi)
         run_async(torch, np, APPOConfig, APPO_S, runners, kind, smi)
-        run_impala_cartpole()
+        run_impala_cartpole(ray_tpu_torch)
     finally:
         ray_tpu_torch.shutdown()
         shutil.rmtree(root, ignore_errors=True)
@@ -2118,36 +2155,81 @@ def run_async(torch, np, config_cls, seconds, runners, kind, smi):
             raise AssertionError("a runner's weights are not the learner's")
 
 
-def run_impala_cartpole():
-    """(5): IMPALA CartPole at tests/test_rllib.py:139's config
-    (rllib_learning_sweep.impala_cartpole_config: 2 runner actors) with
-    the learner on the card, one seed after another."""
-    from rllib_learning_sweep import (BAR, IMPALA_ITERS,
-                                      impala_cartpole_config, learn_cartpole)
+def learner_report(ray_tpu_torch, path, kind, smi):
+    """After (3): the cluster's span timeline (timeline(spans=True),
+    written to `path`) through ray_tpu_torch.tools.perf_report over the
+    IMPALA learner thread (the thread with the most learner.step time):
+    each bucket's share of its window, printed."""
+    from ray_tpu_torch.tools import perf_report
+    t0 = time.perf_counter()
+    events = ray_tpu_torch.timeline(path, spans=True)
+    steps = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("name") == "learner.step":
+            key = (e.get("pid"), e.get("tid"))
+            steps[key] = steps.get(key, 0.0) + float(e.get("dur", 0.0))
+    if not steps:
+        raise AssertionError("no learner.step span in the IMPALA timeline")
+    pid, tid = max(steps, key=steps.get)
+    report = perf_report.attribute(events, process=str(pid),
+                                   thread=str(tid))
+    buckets = {b: f"{r['seconds']:.4f} s ({r['pct']:.2f}%)"
+               for b, r in report["buckets"].items()}
+    print(f"  perf_report of the IMPALA learner thread ({len(events)} "
+          f"events, {time.perf_counter() - t0:.2f} s): window "
+          f"{report['window_s']:.3f} s; {json.dumps(buckets)}; attributed "
+          f"{report['attributed_pct']:.2f}%; {kind}; {smi}", flush=True)
+    if not report["buckets"]["learner_compute"]["seconds"] > 0:
+        raise AssertionError(f"no learner_compute in {report}")
+
+
+def impala_cartpole_learns(seed):
+    """(5), in a task's process: IMPALA CartPole at tests/test_rllib.py:
+    139's config (rllib_learning_sweep.impala_cartpole_config) with
+    `seed`, the learner local on the card (f32, TF32 off), trained to the
+    bar by rllib_learning_sweep.learn_cartpole; returns the best
+    episode_reward_mean, the iterations run and whether the learner's
+    params were on the card."""
+    import torch
+    torch.set_num_threads(1)  # the seeds' processes share the cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from rllib_learning_sweep import (IMPALA_ITERS, impala_cartpole_config,
+                                      learn_cartpole)
 
     from ray_tpu_torch.rllib import ImpalaConfig
     t0 = time.perf_counter()
-    reached = []
-    for seed in IMPALA_CARTPOLE_SEEDS:
-        t1 = time.perf_counter()
-        best, iterations, on_card = learn_cartpole(
-            impala_cartpole_config(ImpalaConfig, seed),
-            lambda algo: all(p.is_cuda for p in
-                             algo.learner_group._local.module.parameters()),
-            iters=IMPALA_ITERS)
-        print(f"  IMPALA CartPole seed {seed}: best episode_reward_mean "
-              f"{best:.2f} in {iterations} iterations "
-              f"({time.perf_counter() - t1:.2f} s, learner on the card: "
-              f"{on_card})", flush=True)
-        if not on_card:
-            raise AssertionError("the CartPole learner is not on the card")
-        if best >= BAR:
-            reached.append(seed)
+    best, iterations, on_card = learn_cartpole(
+        impala_cartpole_config(ImpalaConfig, seed),
+        lambda algo: all(p.is_cuda for p in
+                         algo.learner_group._local.module.parameters()),
+        iters=IMPALA_ITERS)
+    return {"seed": seed, "best": best, "iterations": iterations,
+            "on_card": on_card, "s": time.perf_counter() - t0}
+
+
+def run_impala_cartpole(ray_tpu_torch):
+    """(5): the learning bar over IMPALA_CARTPOLE_SEEDS, one task a seed
+    (with its IMPALA_CARTPOLE_RUNNERS runner actors), all at once."""
+    from rllib_learning_sweep import BAR, IMPALA_ITERS
+    t0 = time.perf_counter()
+    task = ray_tpu_torch.remote(impala_cartpole_learns).options(
+        num_cpus=1, num_gpus=0.1)
+    runs = ray_tpu_torch.get(
+        [task.remote(s) for s in IMPALA_CARTPOLE_SEEDS], timeout=900)
+    reached = [r["seed"] for r in runs if r["best"] >= BAR]
+    for r in runs:
+        print(f"  IMPALA CartPole seed {r['seed']}: best episode_reward_mean "
+              f"{r['best']:.2f} in {r['iterations']} iterations "
+              f"({r['s']:.2f} s, learner on the card: {r['on_card']})",
+              flush=True)
     print(f"  IMPALA CartPole: {len(reached)} of "
           f"{len(IMPALA_CARTPOLE_SEEDS)} seeds reached {BAR} within "
           f"{IMPALA_ITERS} iterations ({reached}; at least "
-          f"{IMPALA_CARTPOLE_MIN_REACHED} needed), "
+          f"{IMPALA_CARTPOLE_MIN_REACHED} needed), side by side in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if not all(r["on_card"] for r in runs):
+        raise AssertionError("an IMPALA CartPole learner is not on the card")
     if len(reached) < IMPALA_CARTPOLE_MIN_REACHED:
         raise AssertionError(f"IMPALA CartPole reached {BAR} in "
                              f"{len(reached)} of "
@@ -6122,6 +6204,121 @@ def run_examples(cfg, kind, smi):
           f"{max(m['peak_gib'] for m in history):.2f} GiB, launches "
           f"{launches}; {kind}; {smi}", flush=True)
     return launches
+
+
+# phase "entry": ray_tpu_torch.entry's forward (the counterpart of
+# __graft_entry__.py's entry()) of GPT-2-125M at its [4, 1024] example
+# shape, through the reference's dense attention and, on the same params
+# and tokens, through the flash forward kernel ("auto"), held to phase
+# "serve"'s bars by check_scores, each row a prompt: its next-token
+# log-probs' sum within SERVE_TOKEN_TOL a token, and after its last
+# position the argmax (where the dense top-two gap is SERVE_GAP or more)
+# and its log-prob. Beyond serve's, the argmax at every position where
+# the dense gap is SERVE_GAP or more. The worst single position's
+# log-prob error is printed: on an H100 it exceeds SERVE_TOKEN_TOL
+# (3.4e-2, the worst of 4,092 positions of random tokens; PERF.md §6),
+# which is why the bar is serve's per-token mean
+ENTRY_TIMED = 5
+
+
+def entry_scores(torch, logits, tokens):
+    """(each position's log-prob of the next token [B, T-1], the argmax
+    [B, T], its log-prob [B, T] and the top-two gap [B, T]) of logits
+    [B, T, V] f32."""
+    logz = torch.logsumexp(logits, dim=-1)
+    picked = logits[:, :-1].gather(-1, tokens[:, 1:, None].long())[..., 0]
+    top2 = logits.topk(2, dim=-1)
+    return (picked - logz[:, :-1], top2.indices[..., 0],
+            top2.values[..., 0] - logz,
+            top2.values[..., 0] - top2.values[..., 1])
+
+
+def entry_rows(lp, top, top_lp, gap):
+    """Each row as phase "serve" scores a prompt (score_prompts)."""
+    t = top.shape[1]
+    return [{"logprob_sum": float(lp[i].double().sum()),
+             "next_token": int(top[i, -1]),
+             "next_logprob": float(top_lp[i, -1]),
+             "gap": float(gap[i, -1]), "tokens": t}
+            for i in range(lp.shape[0])]
+
+
+def run_entry(torch, fa, kind, smi):
+    """Phase "entry" (the module docstring's phase 19); returns its
+    launch counts."""
+    from ray_tpu_torch.entry import entry
+    from ray_tpu_torch.models import GPT2_125M
+    t0 = time.perf_counter()
+    dense, (params, zeros) = entry()
+    flash, _ = entry(GPT2_125M.replace(attention_impl="auto"))
+    build_s = time.perf_counter() - t0
+    cfg = GPT2_125M
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rand = torch.randint(0, cfg.vocab_size, tuple(zeros.shape),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    if not (zeros.shape == (4, cfg.max_seq_len) and zeros.is_cuda
+            and not zeros.any()):
+        raise AssertionError(f"entry()'s example tokens: {zeros.shape}")
+    total = {name: 0 for name in fa.launches}
+    for what, tokens in (("example tokens (zeros)", zeros),
+                         ("random tokens", rand)):
+        logits = {}
+        for route, fn in (("dense", dense), ("flash", flash)):
+            fa.reset_launches()
+            with torch.inference_mode():
+                logits[route] = fn(params, tokens)
+            torch.cuda.synchronize()
+            launches = dict(fa.launches)
+            want = {n: 0 for n in launches}
+            if route == "flash":
+                want["flash_fwd"] = cfg.n_layers
+            if launches != want:
+                raise AssertionError(f"entry {route} forward on {what}: "
+                                     f"launches {launches}, want {want}")
+            for name, n in launches.items():
+                total[name] += n
+            out = logits[route]
+            if not (out.shape == (*tokens.shape, cfg.vocab_size)
+                    and out.dtype == torch.float32
+                    and bool(torch.isfinite(out).all())):
+                raise AssertionError(f"entry {route} logits on {what}: "
+                                     f"{out.shape} {out.dtype}, finite "
+                                     f"{bool(torch.isfinite(out).all())}")
+        dense_s = entry_scores(torch, logits["dense"], tokens)
+        flash_s = entry_scores(torch, logits["flash"], tokens)
+        worst, held_last = check_scores(entry_rows(*flash_s),
+                                        entry_rows(*dense_s),
+                                        f"entry on {what}, row")
+        (lp_d, top_d, _, gap_d), (lp_f, top_f, _, _) = dense_s, flash_s
+        token_max = (lp_f - lp_d).abs().max().item()
+        held = gap_d >= SERVE_GAP
+        flips = int((top_f != top_d)[held].sum())
+        nll = -lp_d.mean().item()
+        print(f"  entry on {what}: flash vs dense next-token log-prob, "
+              f"worst row {worst:.3e} a token (bar {SERVE_TOKEN_TOL}), "
+              f"worst position {token_max:.3e}; last-position argmax held "
+              f"in {held_last} of {len(top_d)} rows; argmax at every "
+              f"position with gap >= {SERVE_GAP}: {int(held.sum())} of "
+              f"{held.numel()}, {flips} differ; mean NLL {nll:.4f} (ln V "
+              f"{math.log(cfg.vocab_size):.4f})", flush=True)
+        if flips:
+            raise AssertionError(f"entry on {what}: {flips} argmaxes differ")
+        # (on the zeros the tied head favours the input token itself)
+        if tokens is rand and abs(nll - math.log(cfg.vocab_size)) > 0.5:
+            raise AssertionError(f"entry on {what}: mean NLL {nll} is not "
+                                 f"near ln({cfg.vocab_size})")
+        del logits, dense_s, flash_s, lp_d, lp_f, top_d, top_f, gap_d
+    with torch.inference_mode():
+        ms = {route: cuda_ms(torch, lambda fn=fn: fn(params, rand),
+                             ENTRY_TIMED)
+              for route, fn in (("dense", dense), ("flash", flash))}
+    print(f"  entry(): models built in {build_s:.2f} s; a [4, "
+          f"{cfg.max_seq_len}] forward dense {ms['dense']:.3f} ms, flash "
+          f"{ms['flash']:.3f} ms; launches {total}; {kind}; {smi}",
+          flush=True)
+    del dense, flash, params
+    torch.cuda.empty_cache()
+    return total
 
 
 if __name__ == "__main__":

@@ -8,7 +8,12 @@ token before slot 1 (the JAX cumsum over the flattened [k, tokens]
 order), and a pair past the expert's capacity is dropped (adds nothing).
 The router runs in f32 (the f32 router promotes the activations, as the
 JAX matmul does); gelu is the tanh form, jax.nn.gelu's default. The
-experts run in the activations' dtype.
+experts compute in f32 with f32 operands, as the JAX einsums do: its
+dispatch one-hots are f32, so the experts' input, both GEMMs, the gelu
+and the combine promote to f32 whatever the compute dtype. The
+experts' input holds the activations' values and each GEMM reads its
+weights' values (cast to the compute dtype by the caller) widened to
+f32; the caller casts the f32 output back.
 
 Distributed (`MoEAxes`, from the transformer on a mesh): each rank of
 the `expert` axis holds n_experts / expert of them and runs only those;
@@ -102,7 +107,8 @@ def moe(x, w_router, w_up, w_down, *, num_selected: int = 2,
     """x [b, t, d] (this rank's tokens) -> (y [b, t, d] f32, aux f32,
     share of the global (token, slot) pairs dropped). w_router [d, E]
     (all experts); w_up [E_local, d, f_local] and w_down [E_local,
-    f_local, d] in x's dtype, this rank's experts (and hidden columns)."""
+    f_local, d] in the compute dtype, this rank's experts (and hidden
+    columns), which run in f32."""
     b, t, d = x.shape
     n_experts = w_router.shape[1]
     k = min(num_selected, n_experts)
@@ -138,13 +144,14 @@ def moe(x, w_router, w_up, w_down, *, num_selected: int = 2,
     tok, slot = local.nonzero(as_tuple=True)
     place = (idx[tok, slot] - e0) * capacity + pos[tok, slot]
     xe = to_parallel(x2, (axes.expert, axes.tensor))
-    expert_in = xe.new_zeros(e_local * capacity, d).index_copy(
-        0, place, xe[tok])
-    h = F.gelu(torch.bmm(expert_in.view(e_local, capacity, d), w_up),
-               approximate="tanh")
-    out = torch.bmm(h, w_down).view(e_local * capacity, d)
-    per_slot = out.new_zeros(b * t * k, d, dtype=torch.float32).index_copy(
-        0, tok * k + slot, out[place].to(torch.float32))
+    f32 = torch.float32
+    expert_in = xe.new_zeros(e_local * capacity, d, dtype=f32).index_copy(
+        0, place, xe[tok].to(f32))
+    h = F.gelu(torch.bmm(expert_in.view(e_local, capacity, d),
+                         w_up.to(f32)), approximate="tanh")
+    out = torch.bmm(h, w_down.to(f32)).view(e_local * capacity, d)
+    per_slot = out.new_zeros(b * t * k, d).index_copy(
+        0, tok * k + slot, out[place])
     per_slot = sum_over(per_slot.view(b * t, k, d), (axes.expert,
                                                      axes.tensor))
     y = (gates[..., None] * per_slot).sum(1)

@@ -13,7 +13,10 @@ fails on an early exit and ends a process with SIGTERM. Phase
 reject each fault they name. Phase "examples" runs last; its checks of
 the GPT-2 example's reports accept a run (with and without remat) and
 reject each fault they name, and its wrapper of the example's loop adds
-the launches, the time and the peak memory to each report."""
+the launches, the time and the peak memory to each report. Phase
+"entry" runs between "ops" and "elastic"; it scores each row of a
+forward as phase "serve" scores a prompt, and serve's bars accept and
+reject its rows as stated."""
 
 import importlib.util
 from pathlib import Path
@@ -416,3 +419,70 @@ def test_example_loop_adds_launches_time_and_memory(monkeypatch):
     assert [m["launches"]["flash_fwd"] for m in got] == [12, 24]
     assert got[0]["peak_gib"] == 1.0 and got[1]["time"] >= got[0]["time"]
     pflash.reset_launches()
+
+
+# ---- phase "entry" --------------------------------------------------------------
+
+def test_entry_phase_is_run_and_documented():
+    """Phase "entry" runs between "ops" and "elastic", the kernels line
+    carries its launches, and the docstring describes it as phase 19."""
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main("):src.index("def thread_cpu_s(")]
+    phases = [line.split('phase("')[1].split('"')[0]
+              for line in main.splitlines() if 'with phase("' in line]
+    assert phases.index("entry") == phases.index("ops") + 1
+    assert phases.index("elastic") == phases.index("entry") + 1
+    assert '["launches_by_path"]["entry"]' in main
+    assert " 19. entry (run after phase 16 and before phase 17):" in \
+        chip_smoke.__doc__
+
+
+def _entry_logits(seed=0):
+    """A narrow GPT-2-shaped model's logits on random tokens (f32)."""
+    from ray_tpu_torch.models import GPT2_125M, Transformer
+    cfg = GPT2_125M.replace(d_model=64, n_layers=2, n_heads=2, d_ff=128,
+                            vocab_size=256, max_seq_len=32, dtype="float32")
+    model = Transformer(cfg, device="cpu", seed=seed)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32))
+    with torch.no_grad():
+        return model(tokens), tokens
+
+
+def test_entry_rows_are_the_serve_scores_of_each_row():
+    """Phase "entry" scores each row as phase "serve" scores a prompt
+    alone: entry_rows of its logits equal score_prompts' answers."""
+    logits, tokens = _entry_logits()
+    rows = chip_smoke.entry_rows(*chip_smoke.entry_scores(torch, logits,
+                                                          tokens))
+    for got, lg, toks in zip(rows, logits, tokens):
+        logp = torch.log_softmax(lg.double(), -1)
+        want_sum = float(logp[:-1].gather(-1, toks[1:, None].long()).sum())
+        np.testing.assert_allclose(got["logprob_sum"], want_sum, rtol=1e-5)
+        assert got["next_token"] == int(logp[-1].argmax())
+        np.testing.assert_allclose(got["next_logprob"],
+                                   float(logp[-1].max()), rtol=1e-5,
+                                   atol=1e-6)
+        assert got["tokens"] == tokens.shape[1]
+        top2 = logp[-1].topk(2).values
+        np.testing.assert_allclose(got["gap"], float(top2[0] - top2[1]),
+                                   rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("shift,passes", [(0.5, True), (1.5, False)])
+def test_entry_rows_held_to_the_serve_bars(shift, passes):
+    """A route whose every next-token log-prob is off by `shift` x
+    SERVE_TOKEN_TOL passes check_scores below the bar and fails above."""
+    logits, tokens = _entry_logits(1)
+    want = chip_smoke.entry_rows(*chip_smoke.entry_scores(torch, logits,
+                                                          tokens))
+    lp, top, top_lp, gap = chip_smoke.entry_scores(torch, logits, tokens)
+    moved = (lp + shift * chip_smoke.SERVE_TOKEN_TOL, top, top_lp, gap)
+    got = chip_smoke.entry_rows(*moved)
+    if passes:
+        worst, _ = chip_smoke.check_scores(got, want, "entry")
+        assert worst == pytest.approx(shift * chip_smoke.SERVE_TOKEN_TOL,
+                                      rel=1e-3)
+    else:
+        with pytest.raises(AssertionError, match="logprob_sum"):
+            chip_smoke.check_scores(got, want, "entry")

@@ -74,13 +74,18 @@ def test_fresh_import_pulls_in_no_jax_and_no_ray_tpu():
                                     "ray_tpu_torch.dashboard",
                                     "ray_tpu_torch.scripts.cli",
                                     "ray_tpu_torch.autoscaler",
-                                    "ray_tpu_torch.tools.chaos_sweep"])
+                                    "ray_tpu_torch.tools.chaos_sweep",
+                                    "ray_tpu_torch.entry",
+                                    "ray_tpu_torch.tools.perf_report",
+                                    "ray_tpu_torch.tools.fuzz_ownership",
+                                    "ray_tpu_torch.tools.lint"])
 def test_data_tune_collective_import_alone_without_jax(module):
     """Each of Data, Tune, the host collectives, Serve, the lazy task
     graphs, trace propagation, the thin client, jobs, workflows, the
-    dashboard, the CLI, the autoscaler and the chaos sweep, imported
-    alone in a fresh process, loads its modules and no jax, optax or
-    ray_tpu."""
+    dashboard, the CLI, the autoscaler, the chaos sweep, the entry
+    points, the perf report, the ownership fuzz harness and the lint
+    runner, imported alone in a fresh process, loads its modules and no
+    jax, optax or ray_tpu."""
     code = (f"import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             f"print('MODS', len([n for n in sys.modules "

@@ -125,14 +125,30 @@ VERBATIM = [
     "autoscaler/demand_scheduler.py", "autoscaler/v2.py",
     "train/sklearn_trainer.py", "train/tensorflow_trainer.py",
     "train/accelerate_trainer.py", "train/transformers_trainer.py",
+    # the repo-root tools (reference_path): the port's lie under
+    # ray_tpu_torch/tools/
+    "tools/perf_report.py", "tools/fuzz_ownership.py", "tools/lint.py",
 ]
+
+
+def reference_path(path: str) -> Path:
+    """The JAX package's module of VERBATIM entry `path`: under ray_tpu/,
+    or for tools/ at the repo root."""
+    if path.startswith("tools/"):
+        return REPO / path
+    return REPO / "ray_tpu" / path
 
 # the lines a copy repairs (reference text -> the port's), each a fault of
 # the reference that the port fixes in its copy only: the transition
 # ring's lock is reentrant (a garbage collection inside record() can run
 # an ObjectRef.__del__ that records on the same thread); the CLI's head
 # file lies under TMPDIR, not at a path every checkout shares, and goes
-# with its head (test_torch_ops_tooling.py's test_head_file_*)
+# with its head (test_torch_ops_tooling.py's test_head_file_*). The
+# tools moved one directory down: each names its own command and the
+# port's files, the fuzz harness puts the repo root on sys.path (not the
+# package directory, whose data/ and tune/ would shadow top-level
+# modules), and the lint runner lints the port into a cache file of its
+# own (tests/test_lint.py writes the reference's).
 REPAIRED = {
     "_private/ownership.py": [(
         "        self._lock = threading.Lock()\n",
@@ -161,12 +177,72 @@ REPAIRED = {
          "        except (OSError, ValueError):\n"
          "            pass\n"
          "        return 0\n")],
+    "tools/perf_report.py": [
+        ("    python tools/perf_report.py TRACE.json [--format=json] "
+         "[--out FILE]\n",
+         "    python -m ray_tpu_torch.tools.perf_report TRACE.json "
+         "[--format=json] \\\n        [--out FILE]\n"),
+        ("    # device\u2192host syncs recorded by the jax sentinel inside step\n"
+         "    # regions (util/jax_sentinel.py): wall time blocked on a forced\n",
+         "    # device\u2192host syncs recorded by the CUDA sentinel inside step\n"
+         "    # regions (util/cuda_sentinel.py): wall time blocked on a forced\n"
+         )],
+    "tools/fuzz_ownership.py": [
+        ("    python tools/fuzz_ownership.py --seed 7 --steps 500 \\\n",
+         "    python -m ray_tpu_torch.tools.fuzz_ownership --seed 7 "
+         "--steps 500 \\\n"),
+        ("    python tools/fuzz_ownership.py --seeds 50 --steps 500  # sweep\n",
+         "    python -m ray_tpu_torch.tools.fuzz_ownership --seeds 50 \\\n"
+         "        --steps 500  # sweep\n"),
+        ("(tests/test_ownership_fuzz.py runs 3 short seeds in tier-1 and the\n"
+         "50x500 sweep behind -m slow).\n",
+         "(tests/test_torch_fuzz_ownership.py runs 3 short seeds, each in a\n"
+         "process of its own under a timeout).\n"),
+        ("sys.path.insert(0, os.path.dirname(os.path.dirname(\n"
+         "    os.path.abspath(__file__))))\n",
+         "sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(\n"
+         "    os.path.abspath(__file__)))))\n")],
+    "tools/lint.py": [
+        ('"""CI lint runner: `python tools/lint.py [paths...]`.\n\n'
+         "Thin wrapper over `python -m ray_tpu_torch.lint` that defaults to "
+         "linting the\n"
+         "ray_tpu package itself (the checked-in zero-findings baseline) WITH "
+         "the\n"
+         "on-disk incremental cache enabled (.graftlint-cache.json at the "
+         "repo\n"
+         "root, keyed by file content hash + rule-set fingerprint), so the "
+         "tier-1\n",
+         '"""CI lint runner: `python -m ray_tpu_torch.tools.lint '
+         '[paths...]`.\n\n'
+         "Thin wrapper over `python -m ray_tpu_torch.lint` that defaults to\n"
+         "linting the ray_tpu_torch package itself, its examples/ and "
+         "tools/\n"
+         "apart (the JAX package keeps those at the repo root, outside what\n"
+         "tools/lint.py lints), the zero-findings baseline, WITH the on-disk\n"
+         "incremental cache enabled (.graftlint-torch-cache.json at the "
+         "repo\n"
+         "root, a file of its own: tests/test_lint.py writes the JAX "
+         "package's),\n"
+         "keyed by file content hash + rule-set fingerprint, so the tier-1\n"),
+        ("_REPO_ROOT = os.path.dirname(os.path.dirname("
+         "os.path.abspath(__file__)))\n"
+         'CACHE_PATH = os.path.join(_REPO_ROOT, ".graftlint-cache.json")\n',
+         "_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(\n"
+         "    os.path.abspath(__file__))))\n"
+         'CACHE_PATH = os.path.join(_REPO_ROOT, '
+         '".graftlint-torch-cache.json")\n'
+         "# what lies outside the JAX package, at the repo root\n"
+         'OUTSIDE = ("examples", "tools")\n'),
+        ('        argv.append(os.path.join(_REPO_ROOT, "ray_tpu"))\n',
+         '        pkg = os.path.join(_REPO_ROOT, "ray_tpu_torch")\n'
+         "        argv += sorted(os.path.join(pkg, n) for n in os.listdir(pkg)\n"
+         "                       if n not in OUTSIDE)\n")],
 }
 
 
 @pytest.mark.parametrize("path", VERBATIM)
 def test_copy_equals_reference_under_the_rename_rule(path):
-    ref = (REPO / "ray_tpu" / path).read_text()
+    ref = reference_path(path).read_text()
     port = (REPO / "ray_tpu_torch" / path).read_text()
     want = rename(ref) if path.endswith(".py") else ref
     for before, after in REPAIRED.get(path, []):
