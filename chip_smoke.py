@@ -41,6 +41,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      make_train_step, exactly as bench.py runs the JAX package (3 warm-up
      steps, then timed steps on the same batch); the launch counters,
      zeroed just before, must show 12 launches of each kernel per step.
+     Phase "server" (run first in the lane, below): another thread asks
+     gpu_profiler.start_server for a SERVER_CAPTURE_MS capture of the
+     process while the slice's steps run (its model built anew from the
+     same seed, its tokens from SEED, after WARMUP steps); the trace, in
+     latest_trace_dir's layout, holds each kernel.
   6. the trainer: the same steps as a user of Ray Train takes them,
      ray_tpu_torch.init() then TorchTrainer(...).fit() with one worker
      holding the card (ScalingConfig() and TorchConfig() as they come).
@@ -423,6 +428,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the random tokens the mean next-token NLL ln(vocab) +/- 0.5. Each
      route's forward ms printed. launches_by_path "entry" is the flash
      route's total.
+Run order: phases 1-6, 9, 8 and 11 one after the other; then the lane,
+"server" and phases 10, 7, 12 and 13 in a process of their own (this
+script with --lane; its lines marked "lane|"), beside phases 15, 14, 16
+and 19 in this process; once the lane has ended, phases 17 and 18. What runs
+beside the lane shares the card and the host's cores with it: those
+phases' times are printed and held to no bar, and "kernels" times the
+kernels alone (LANE_PHASES says why each phase runs where it does).
 Then it prints {"kernels": [...]}, the nvidia-smi line, and
 {"ok": true, "device": {...}} last. Without CUDA it exits non-zero first.
 """
@@ -818,6 +830,11 @@ def main(argv=None) -> int:
     ap.add_argument("--elastic-learners", action="store_true",
                     help="phase \"elastic\"'s part 2, which run_elastic "
                          "starts in a process of its own beside part 1")
+    ap.add_argument("--lane", nargs=2, metavar=("OUT", "LLAMA_FIRST"),
+                    help="the lane: phases " + ", ".join(LANE_PHASES)
+                         + " in a process of their own, phase \"llama\"'s "
+                         "first loss given; write their paths' launches "
+                         "to OUT (JSON)")
     ap.add_argument("--client-entry", nargs=2, metavar=("GO", "RELEASE"),
                     help="phase \"ops\"'s thin client: once the file GO "
                          "holds the proxy's ray:// address, score through "
@@ -830,6 +847,9 @@ def main(argv=None) -> int:
         return client_entry(*args.client_entry)
     if args.elastic_learners:
         return elastic_learners_entry()
+    if args.lane:
+        return lane_entry(args.lane[0], float(args.lane[1]),
+                          args.profile and os.path.abspath(args.profile))
 
     import torch
     if not torch.cuda.is_available():
@@ -1004,28 +1024,12 @@ def main(argv=None) -> int:
         for name in records:
             records[name]["launches_by_path"]["llama"] = llama_launches[name]
 
-    with phase("rllib"):
-        fa.reset_launches()
-        run_rllib(torch, kind, smi,
-                  args.profile and os.path.abspath(args.profile) + ".rllib")
-        for name in records:
-            records[name]["launches_by_path"]["rllib"] = fa.launches[name]
-
     with phase("impala"):
-        fa.reset_launches()
-        run_impala(torch, kind, smi)
-        if any(fa.launches.values()):
-            raise AssertionError(f"the impala path launched flash kernels: "
-                                 f"{dict(fa.launches)}")
+        impala_launches = flashless(torch, fa, "impala", run_impala, kind,
+                                    smi)
         for name in records:
-            records[name]["launches_by_path"]["impala"] = fa.launches[name]
-
-    with phase("parallel"):
-        by_path = run_parallel(torch, fa, Transformer, kind, smi, gen,
-                               llama_first)
-        for name in records:
-            records[name]["launches_by_path"].update(
-                {path: n[name] for path, n in by_path.items()})
+            records[name]["launches_by_path"]["impala"] = \
+                impala_launches[name]
 
     with phase("tooling"):
         tooling_launches = run_tooling(torch, fa, Transformer, cfg, kind, smi,
@@ -1034,45 +1038,41 @@ def main(argv=None) -> int:
             records[name]["launches_by_path"]["tooling"] = \
                 tooling_launches[name]
 
-    with phase("offpolicy"):
-        fa.reset_launches()
-        run_offpolicy(torch, kind, smi)
-        if any(fa.launches.values()):
-            raise AssertionError(f"the offpolicy path launched flash "
-                                 f"kernels: {dict(fa.launches)}")
-        for name in records:
-            records[name]["launches_by_path"]["offpolicy"] = \
-                fa.launches[name]
+    # phases "server", "parallel", "rllib", "offpolicy" and "rllib_rest"
+    # run in the lane, a process of their own, beside "serve", "tune",
+    # "ops" and "entry" here (LANE_PHASES)
+    lane = Lane(llama_first,
+                args.profile and os.path.abspath(args.profile) + ".rllib")
+    try:
+        with phase("serve"):
+            serve_launches = run_serve(torch, cfg, kind, smi)
+            for name in records:
+                records[name]["launches_by_path"]["serve"] = \
+                    serve_launches[name]
 
-    with phase("rllib_rest"):
-        fa.reset_launches()
-        run_rllib_rest(torch, kind, smi)
-        if any(fa.launches.values()):
-            raise AssertionError(f"the rllib_rest path launched flash "
-                                 f"kernels: {dict(fa.launches)}")
-        for name in records:
-            records[name]["launches_by_path"]["rllib_rest"] = \
-                fa.launches[name]
+        with phase("tune"):
+            tune_launches = run_tune(torch, cfg, kind, smi)
+            for name in records:
+                records[name]["launches_by_path"]["tune"] = \
+                    tune_launches[name]
 
-    with phase("tune"):
-        tune_launches = run_tune(torch, cfg, kind, smi)
-        for name in records:
-            records[name]["launches_by_path"]["tune"] = tune_launches[name]
+        with phase("ops"):
+            ops_launches = run_ops(torch, cfg, tokens, slice_first, kind,
+                                   smi)
+            for name in records:
+                records[name]["launches_by_path"]["ops"] = ops_launches[name]
 
-    with phase("serve"):
-        serve_launches = run_serve(torch, cfg, kind, smi)
-        for name in records:
-            records[name]["launches_by_path"]["serve"] = serve_launches[name]
+        with phase("entry"):
+            entry_launches = run_entry(torch, fa, kind, smi)
+            for name in records:
+                records[name]["launches_by_path"]["entry"] = \
+                    entry_launches[name]
 
-    with phase("ops"):
-        ops_launches = run_ops(torch, cfg, tokens, slice_first, kind, smi)
-        for name in records:
-            records[name]["launches_by_path"]["ops"] = ops_launches[name]
-
-    with phase("entry"):
-        entry_launches = run_entry(torch, fa, kind, smi)
-        for name in records:
-            records[name]["launches_by_path"]["entry"] = entry_launches[name]
+        for path, n in lane.join().items():
+            for name in records:
+                records[name]["launches_by_path"][path] = n[name]
+    finally:
+        lane.stop()
 
     with phase("elastic"):
         elastic_launches = run_elastic(torch, cfg, tokens, kind, smi)
@@ -1085,6 +1085,7 @@ def main(argv=None) -> int:
         for name in records:
             records[name]["launches_by_path"]["examples"] = \
                 example_launches[name]
+
 
     # after the runs, so that a spill does not hide what the kernels do
     spilled = {src: n for src, n in spills.items()
@@ -1133,6 +1134,136 @@ def process_start_time():
     with open("/proc/uptime") as f:
         uptime = float(f.read().split()[0])
     return time.time() - (uptime - ticks / os.sysconf("SC_CLK_TCK"))
+
+
+# The lane: phases LANE_PHASES in a process of their own (this script with
+# --lane), started once "tooling" has ended and joined before "elastic",
+# beside "serve", "tune", "ops" and "entry" in the main process. One after
+# the other the phases leave the run's time limit no room on a slow host.
+# The lane takes the phases that hold no bar on a time and whose learning
+# bars count iterations of a synchronous loop. Alone remain the phases
+# whose times are kept or gated ("kernels", "llama", "tooling"), "impala"
+# (its asynchronous learner's pace, and so its learning per iteration,
+# follows the host's), and "elastic", which reads the card's memory in use
+# by every process. "server" runs first in the lane, a process in which no
+# other torch.profiler session has run: in the main process, after
+# "tooling"'s sessions, its capture once held none of the step's forward
+# launches (torch 2.11). "parallel" runs next, beside "serve", the
+# lightest on the card, so that its 30 GiB never meet "tune"'s trials.
+LANE_PHASES = ("server", "parallel", "rllib", "offpolicy", "rllib_rest")
+LANE_S = 1000       # the lane's process, at most
+LANE_STOP_S = 30    # from SIGTERM to SIGKILL
+
+
+def lane_entry(out, llama_first, profile):
+    """The lane's phases, in order; writes the launches of each of their
+    paths to the JSON file `out`. SIGTERM ends it through its phases'
+    own teardown."""
+    import signal
+
+    import torch
+
+    from ray_tpu_torch._device import gpu_info
+    from ray_tpu_torch.models import Transformer
+    from ray_tpu_torch.ops import flash_attention as fa
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    kind, smi = torch.cuda.get_device_name(0), gpu_info()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    by_path = {}
+    with phase("server"):
+        run_server(torch, Transformer, kind, smi, gen)
+        torch.cuda.empty_cache()
+    with phase("parallel"):
+        by_path.update(run_parallel(torch, fa, Transformer, kind, smi, gen,
+                                    llama_first))
+    with phase("rllib"):
+        fa.reset_launches()
+        run_rllib(torch, kind, smi, profile)
+        by_path["rllib"] = {n: fa.launches[n] for n in KERNEL_SOURCES}
+    with phase("offpolicy"):
+        by_path["offpolicy"] = flashless(torch, fa, "offpolicy",
+                                         run_offpolicy, kind, smi)
+    with phase("rllib_rest"):
+        by_path["rllib_rest"] = flashless(torch, fa, "rllib_rest",
+                                          run_rllib_rest, kind, smi)
+    with open(out, "w") as f:
+        json.dump(by_path, f)
+    return 0
+
+
+def flashless(torch, fa, name, run, kind, smi):
+    """run(torch, kind, smi) with the launch counts zeroed just before; the
+    counts, which must be 0: path `name` launches no flash kernel."""
+    fa.reset_launches()
+    run(torch, kind, smi)
+    if any(fa.launches.values()):
+        raise AssertionError(f"the {name} path launched flash kernels: "
+                             f"{dict(fa.launches)}")
+    return {n: fa.launches[n] for n in KERNEL_SOURCES}
+
+
+class Lane:
+    """The lane's process; a thread copies its stdout to this process's
+    line by line, each line marked "lane|" (its stderr is this
+    process's)."""
+
+    def __init__(self, llama_first, profile):
+        import subprocess
+        import threading
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_lane_")
+        self.out = os.path.join(self.dir, "launches.json")
+        argv = [sys.executable, os.path.abspath(__file__), "--lane",
+                self.out, repr(llama_first)]
+        if profile:
+            argv += ["--profile", profile]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            argv, stdout=subprocess.PIPE, text=True, cwd=REPO,
+            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        self.copier = threading.Thread(target=self._copy, daemon=True,
+                                       name="lane-output")
+        self.copier.start()
+        print(f"  the lane started: phases {', '.join(LANE_PHASES)} in "
+              f"process {self.proc.pid}", flush=True)
+
+    def _copy(self):
+        for line in self.proc.stdout:
+            sys.stdout.write(f"lane| {line}")
+            sys.stdout.flush()
+
+    def join(self):
+        """Waits for the lane (at most LANE_S from its start); the
+        launches of its paths. Raises if it failed."""
+        import subprocess
+        t = time.perf_counter()
+        try:
+            rc = self.proc.wait(
+                timeout=max(0.0, LANE_S - (t - self.t0)))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"the lane ran past {LANE_S} s")
+        self.copier.join(timeout=60)
+        print(f"  the lane ended {time.perf_counter() - self.t0:.1f} s after"
+              f" its start, {time.perf_counter() - t:.1f} s waited for; "
+              f"exit {rc}", flush=True)
+        if rc != 0:
+            raise AssertionError(f"the lane exited {rc}")
+        with open(self.out) as f:
+            return json.load(f)
+
+    def stop(self):
+        """Ends the lane's process: SIGTERM, which its phases' teardown
+        answers, then SIGKILL after LANE_STOP_S."""
+        import subprocess
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(LANE_STOP_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+        self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def trainer_loop(config):
@@ -4735,6 +4866,84 @@ def run_tooling(torch, fa, Transformer, cfg, kind, smi, gen):
         raise AssertionError(f"remote capture: {entry}, forward launches "
                              f"{remote_fwd}")
     return launches
+
+
+# phase "server": gpu_profiler.start_server's window over the process
+# while it runs slice steps (~100 ms each)
+SERVER_CAPTURE_MS = 600
+SERVER_ANSWER_S = 60
+
+
+def run_server(torch, Transformer, kind, smi, gen):
+    """Phase "server": the slice's model built anew from SEED and its
+    WARMUP steps on tokens from `gen` (a process's first step loads the
+    kernels and grows the allocator for longer than the capture's
+    window), then server_capture over the steps that follow."""
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step
+    cfg = slice_config()
+    model = Transformer(cfg, seed=SEED)
+    init_state, train_step = make_train_step(
+        lambda p, bt: model.loss(bt),
+        optimizer=adamw(1e-4, weight_decay=0.01))
+    state = init_state(dict(model.named_parameters()))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (BATCH, cfg.max_seq_len + 1),
+                                     generator=gen, device="cuda")}
+    for _ in range(WARMUP):
+        state, _ = train_step(state, batch)
+    torch.cuda.synchronize()
+    server_capture(torch, train_step, state, batch, kind, smi)
+
+
+def server_capture(torch, train_step, state, batch, kind, smi):
+    """Phase "server": a capture through gpu_profiler.start_server, asked
+    from another thread while this one runs slice steps; the trace, in
+    trace()'s layout, holds each of the three kernels."""
+    import threading
+
+    from ray_tpu_torch.util import gpu_profiler
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_server_")
+    server = gpu_profiler.start_server(0)
+    answer = {}
+
+    def client():
+        try:
+            answer["run"] = gpu_profiler.capture(
+                server.port, SERVER_CAPTURE_MS, log_dir)
+        except Exception as e:  # noqa: BLE001 - raised below
+            answer["error"] = e
+
+    asking = threading.Thread(target=client, daemon=True)
+    t0 = time.perf_counter()
+    asking.start()
+    steps = 0
+    try:
+        while asking.is_alive():
+            state, _ = train_step(state, batch)
+            torch.cuda.synchronize()
+            steps += 1
+            if time.perf_counter() - t0 > SERVER_ANSWER_S:
+                raise AssertionError("the profiler server did not answer "
+                                     f"within {SERVER_ANSWER_S} s")
+        if "error" in answer:
+            raise answer["error"]
+        run = answer["run"]
+        found = run == gpu_profiler.latest_trace_dir(log_dir)
+        s = gpu_profiler.summary(run)
+    finally:
+        server.stop()
+        shutil.rmtree(log_dir, ignore_errors=True)
+    counts = {n: sum(r["count"] for k, r in s["kernels"].items()
+                     if traced_as(k, n)) for n in TRACE_KERNELS}
+    print(f"  a {SERVER_CAPTURE_MS} ms capture through start_server: "
+          f"answered in {time.perf_counter() - t0:.2f} s over {steps} slice "
+          f"steps; device busy {s['busy_us'] / 1e3:.2f} ms of a "
+          f"{s['window_us'] / 1e3:.2f} ms window; kernels {counts}; "
+          f"{kind}; {smi}", flush=True)
+    if not found:
+        raise AssertionError(f"the capture {run} is not latest_trace_dir's")
+    if not all(counts.values()):
+        raise AssertionError(f"the capture misses a kernel: {counts}")
 
 
 def profile_step(torch, train_step, state, batch, path):

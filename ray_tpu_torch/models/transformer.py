@@ -24,10 +24,17 @@ wo/w_down row-parallel over the `tensor` axis, and the attention kernels
 run per shard on the rank's own heads, as JAX's shard_map around Pallas
 does: over `seq` as ring or Ulysses attention (parallel/ring.py,
 parallel/ulysses.py). MoE layers (ops/moe.py) hold their experts split
-over `expert`. The embedding and the head are gathered whole at use. A
-layer stack split over `pipe` is gathered whole at use by hidden and
-loss (the GSPMD meaning of the rules), and runs one stage a rank in
-pipeline_loss (parallel/pipeline.py).
+over `expert`. Where the rules split the vocab over a `tensor` axis
+above 1 (embed ("vocab", "embed"), lm_head ("embed", "vocab"), as the
+JAX rules do), each rank keeps its vocab rows, gathered over the other
+axes only: it looks up the ids in its range and the ranks sum the rows,
+projects onto its own vocab columns, and the cross-entropy runs
+vocab-parallel (_VocabParallelNLL); forward gathers the logits whole at
+the end. Otherwise the embedding and the head are gathered whole at
+use, as they are in a pipeline. A layer stack split over `pipe` is
+gathered whole at use by hidden and loss (the GSPMD meaning of the
+rules), and runs one stage a rank in pipeline_loss
+(parallel/pipeline.py).
 """
 
 from __future__ import annotations
@@ -51,7 +58,8 @@ from ray_tpu_torch.parallel.mesh import (AXIS_EXPERT, AXIS_PIPE, AXIS_SEQ,
 from ray_tpu_torch.parallel.pipeline import pipeline
 from ray_tpu_torch.parallel.ring import ring_attention
 from ray_tpu_torch.parallel.sharding import (MeshAxis, ShardingRules,
-                                             gather_at_use, mesh_axes,
+                                             all_reduce_over, gather_at_use,
+                                             gather_over, mesh_axes,
                                              mesh_axis, sum_over, to_parallel)
 from ray_tpu_torch.parallel.ulysses import ulysses_attention
 
@@ -134,6 +142,39 @@ def _nll(logits, targets):
     return logz - gold
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """The next-token NLL of f32 logits [..., V/n] whose vocab is split
+    over `axis` (n ranks, this rank's columns [coord V/n, (coord+1) V/n)):
+    log(sum exp) + max - the target's logit, the row max all-reduced with
+    MAX, the sum of exp(logits - max) and the target's logit (taken where
+    it is owned, 0 elsewhere) with SUM. No rank holds a whole row. The
+    backward is softmax_local - onehot_local, and runs no collective:
+    the logits' grad is this rank's own columns' whole."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, axis):
+        n = logits.shape[-1]
+        local = targets - axis.coord * n
+        owned = (local >= 0) & (local < n)
+        local = torch.where(owned, local, 0)
+        top = all_reduce_over(logits.amax(-1), axis, "max")
+        probs = torch.exp(logits - top[..., None])
+        total = all_reduce_over(probs.sum(-1), axis)
+        gold = torch.gather(logits, -1, local[..., None])[..., 0] - top
+        gold = all_reduce_over(torch.where(owned, gold, 0.0), axis)
+        probs /= total[..., None]
+        ctx.save_for_backward(probs, local, owned)
+        return torch.log(total) - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        probs, local, owned = ctx.saved_tensors
+        grad = probs * g[..., None]
+        grad.scatter_add_(-1, local[..., None],
+                          -(g * owned.to(g.dtype))[..., None])
+        return grad, None, None
+
+
 def _attention_fn(impl: str, mesh):
     """attn(q, k, v, scale) for a resolved impl (JAX _make_attention):
     ring and Ulysses over the mesh's `seq` axis (one block, the flash
@@ -146,7 +187,42 @@ def _attention_fn(impl: str, mesh):
     return lambda q, k, v, scale: local(q, k, v, causal=True, scale=scale)
 
 
-class _Unsharded:
+class _VocabOps:
+    """The embedding lookup, the head's input and the cross-entropy, over
+    the vocab split on `self.vocab` (a MeshAxis), or whole where it is
+    None."""
+
+    vocab = None
+
+    def lookup(self, tokens, table):
+        """Embedding rows of `tokens` from the table this rank reads."""
+        if self.vocab is None:
+            return F.embedding(tokens, table)
+        n = table.shape[0]
+        local = tokens - self.vocab.coord * n
+        owned = (local >= 0) & (local < n)
+        rows = F.embedding(torch.where(owned, local, 0), table)
+        # every row of the batch is owned by one rank: the sum is whole,
+        # and so is each rank's grad of its own rows (Megatron's g)
+        return sum_over(rows.masked_fill(~owned[..., None], 0.0), self.vocab)
+
+    def head_in(self, x):
+        """The head's input: over the vocab each rank's grad of x is its
+        own columns' part (Megatron's f sums them)."""
+        return x if self.vocab is None else to_parallel(x, self.vocab)
+
+    def nll(self, logits, targets):
+        if self.vocab is None:
+            return _nll(logits, targets)
+        return _VocabParallelNLL.apply(logits, targets, self.vocab)
+
+    def whole_logits(self, logits):
+        if self.vocab is None:
+            return logits
+        return gather_over(logits, self.vocab, logits.dim() - 1)
+
+
+class _Unsharded(_VocabOps):
     """How a layer reads its params with no mesh: cast at use."""
 
     seq = _NO_SEQ
@@ -166,7 +242,7 @@ class _Unsharded:
     def use(self, name, p, dtype):
         return p.to(dtype)
 
-    use_whole = use
+    use_whole = use_vocab = use
 
     def to_tp(self, x, block):
         return x
@@ -178,7 +254,7 @@ class _Unsharded:
         return k
 
 
-class _Sharded:
+class _Sharded(_VocabOps):
     """How a layer reads its params on a mesh: each param a DTensor placed
     by the rules; the batch split over the rules' "batch" axes, so each
     rank holds its own rows, and over `seq`, so it holds its own columns;
@@ -243,12 +319,26 @@ class _Sharded:
         self.widen = (self.tp["attn"] and cfg.kv_heads != cfg.n_heads
                       and not self._split("layers.wkv"))
         self.n_heads, self.kv_rep = cfg.n_heads, cfg.n_heads // cfg.kv_heads
+        # the vocab split over the tensor axis where the rules put it
+        # there and it divides (fit_spec_to_shape); a pipeline gathers
+        # the tables whole
+        vocab_dims = {"embed": 0, "lm_head": 1}
+        split = {self._split(n, vocab_dims[n]) for n in vocab_dims
+                 if n in self.placements}
+        if len(split) > 1:
+            raise ValueError("embed and lm_head must split their vocab over "
+                             "the tensor axis alike")
+        self.vocab = self.tensor if split == {True} and not pipelined \
+            else None
+        self.untensored = [a.name for a in self.axes if a.name != AXIS_TENSOR]
 
-    def _split(self, name: str) -> bool:
-        """Whether param `name` is sharded over a tensor axis above 1."""
+    def _split(self, name: str, dim: Optional[int] = None) -> bool:
+        """Whether param `name` is sharded over a tensor axis above 1 (on
+        its dim `dim`, where given)."""
         m = self.axes.index(self.tensor)
-        return self.tensor.size > 1 and isinstance(self.placements[name][m],
-                                                   Shard)
+        pl = self.placements[name][m]
+        return self.tensor.size > 1 and isinstance(pl, Shard) and \
+            dim in (None, pl.dim)
 
     def local(self, p):
         return p.to_local()
@@ -277,6 +367,16 @@ class _Sharded:
         tensor axis, so its grad is partial over the token axes only."""
         return gather_at_use(shard, dtype, self.placements[name], self.axes,
                              gather=[a.name for a in self.axes],
+                             partial=self.partial_whole)
+
+    def use_vocab(self, name, shard, dtype):
+        """embed or lm_head as this rank reads it: over a vocab-parallel
+        tensor axis its own vocab rows, gathered over the other axes (its
+        grad is partial over the token axes only), else whole."""
+        if self.vocab is None:
+            return self.use_whole(name, shard, dtype)
+        return gather_at_use(shard, dtype, self.placements[name], self.axes,
+                             gather=self.untensored,
                              partial=self.partial_whole)
 
     def to_tp(self, x, block):
@@ -400,7 +500,12 @@ class Transformer(nn.Module):
             "lm_head": d ** -0.5,
         }
         for name, p in self.named_parameters():
-            if name in stddev:
+            if name in stddev and p.dtype == torch.float32:
+                # in place: the same draws and products as below, without
+                # two param-sized temporaries (the 7B's w_gateup is 11.5 GB)
+                p.normal_(0.0, 1.0, generator=generator)
+                p.mul_(stddev[name])
+            elif name in stddev:
                 noise = torch.randn(p.shape, generator=generator,
                                     dtype=torch.float32, device=p.device)
                 p.copy_(noise * stddev[name])
@@ -441,7 +546,7 @@ class Transformer(nn.Module):
     def _embed(self, tokens, plan):
         tokens = torch.as_tensor(tokens, device=self.embed.device).long()
         embed = plan.local(self.embed)
-        x = F.embedding(tokens, plan.use_whole("embed", embed, embed.dtype))
+        x = plan.lookup(tokens, plan.use_vocab("embed", embed, embed.dtype))
         return x.to(torch_dtype(self.cfg.dtype))
 
     def _layer_fn(self):
@@ -538,18 +643,20 @@ class Transformer(nn.Module):
 
     def _head(self, dtype, plan):
         """The lm head as a [d, vocab] matrix in `dtype` (a transposed view
-        of embed when tied)."""
+        of embed when tied); over a vocab-parallel axis [d, vocab / n],
+        this rank's columns."""
         if self.cfg.tie_embeddings:
-            return plan.use_whole("embed", plan.local(self.embed), dtype).t()
-        return plan.use_whole("lm_head", plan.local(self.lm_head), dtype)
+            return plan.use_vocab("embed", plan.local(self.embed), dtype).t()
+        return plan.use_vocab("lm_head", plan.local(self.lm_head), dtype)
 
     def forward(self, tokens, positions=None, *, mesh=None,
                 rules: Optional[ShardingRules] = None):
         """tokens [B, T] -> logits [B, T, vocab] (f32; on a mesh: this
-        rank's rows)."""
+        rank's rows, the vocab whole)."""
         plan = self._plan(mesh, rules)
         x, _ = self._hidden(tokens, positions, plan)
-        return _dot_f32(x, self._head(x.dtype, plan))
+        return plan.whole_logits(
+            _dot_f32(plan.head_in(x), self._head(x.dtype, plan)))
 
     apply = forward
 
@@ -656,21 +763,24 @@ class Transformer(nn.Module):
         x, aux = self._hidden(tokens, None, plan)
         aux_term = self.cfg.moe_aux_coeff * aux if aux is not None else 0.0
         head = self._head(x.dtype, plan)
+        x = plan.head_in(x)
         chunk = self.cfg.loss_chunk
         if not (chunk and t > chunk and t % chunk == 0):
-            nll = _nll(_dot_f32(x, head), targets)
+            nll = plan.nll(_dot_f32(x, head), targets)
             if mask is not None:
                 return torch.sum(nll * mask) / torch.clamp(
                     mask.sum(), min=1.0) + aux_term
             return torch.mean(nll) + aux_term
 
         # Chunked head + cross-entropy: one [B, chunk, vocab] f32 logits
-        # block at a time, recomputed in backward (torch.utils.checkpoint
-        # in place of jax.checkpoint).
+        # block at a time (over a vocab-parallel axis [B, chunk, vocab /
+        # n]), recomputed in backward (torch.utils.checkpoint in place of
+        # jax.checkpoint), the recompute running the same collectives in
+        # the same order on every rank
         total = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(t // chunk):
             sl = slice(i * chunk, (i + 1) * chunk)
-            nll = checkpoint(lambda xc, tc: _nll(_dot_f32(xc, head), tc),
+            nll = checkpoint(lambda xc, tc: plan.nll(_dot_f32(xc, head), tc),
                              x[:, sl], targets[:, sl], use_reentrant=False)
             total = total + torch.sum(nll if mask is None else nll * mask[:, sl])
         if mask is None:

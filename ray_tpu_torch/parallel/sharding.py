@@ -16,7 +16,10 @@ param shard to the compute dtype and all-gathers it when a layer runs,
 and reduce-scatters its grad back to the shard; `to_parallel` and
 `sum_over` are Megatron's f and g over any axes (the column- and
 row-parallel projections over `tensor`, the experts over `expert`);
-`ppermute` and `all_to_all` are JAX's `lax.ppermute` and tiled
+`gather_over` joins a vocab-parallel result whole (its grad sliced back)
+and `all_reduce_over` (no grad) takes the max or sum of the
+vocab-parallel cross-entropy's row statistics; `ppermute` and
+`all_to_all` are JAX's `lax.ppermute` and tiled
 `lax.all_to_all` over one axis (the pipeline's hand-off, Ulysses'
 resharding), each an autograd Function whose backward is the inverse
 exchange. Every rank of an axis must make the same exchanges in the
@@ -266,8 +269,8 @@ def _reduce_scatter(x, dim, group):
     return _wait(_SCATTER(x.contiguous(), "sum", dim, group))
 
 
-def _all_reduce(x, group):
-    return _wait(funcol.all_reduce(x.contiguous(), "sum", group))
+def _all_reduce(x, group, op="sum"):
+    return _wait(funcol.all_reduce(x.contiguous(), op, group))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -433,6 +436,36 @@ def all_gather_dim(x: torch.Tensor, axis: MeshAxis, dim: int) -> torch.Tensor:
     if axis.size == 1:
         return x
     return _all_gather(x, dim, axis.group)
+
+
+def all_reduce_over(x: torch.Tensor, axis: MeshAxis,
+                    op: str = "sum") -> torch.Tensor:
+    """x reduced by `op` ("sum", "max") over the ranks of `axis` (no
+    grad); the identity at size 1."""
+    if axis.size == 1:
+        return x
+    return _all_reduce(x, axis.group, op)
+
+
+class _GatherOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _all_gather(x, dim, axis.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.axis.size, ctx.dim)[ctx.axis.coord], None, None
+
+
+def gather_over(x: torch.Tensor, axis: MeshAxis, dim: int) -> torch.Tensor:
+    """x of every rank of `axis` concatenated along `dim` in rank order,
+    for a use that is the same on every rank (the vocab-parallel logits
+    made whole): the grad of this rank's part is its slice of the whole
+    one. The identity at size 1."""
+    if axis.size == 1:
+        return x
+    return _GatherOver.apply(x, axis, dim)
 
 
 def _exchange(tensors, axis: MeshAxis, shift: int):

@@ -22,9 +22,12 @@ of them unmasked), and the sum over the ranks (data x fsdp x seq) is the
 global loss and grad even where the ranks' masks differ.
 
 - mesh=None: the single-device step.
-- A data mesh, param_specs None: every param replicated; one all-reduce
-  sums the weighed grads and the loss, before the norm and the update.
-  At D = 1 there is no collective, as XLA emits none.
+- param_specs None on a mesh (any axes): every param replicated, as
+  JAX's step with all-replicated specs holds them. The batch splits over
+  the data axes ("dcn", "data") only: ranks along the other axes take
+  the same rows and compute the same grads. One all-reduce over the
+  data axes sums the weighed grads and the loss, before the norm and
+  the update. At D = 1 there is no collective, as XLA emits none.
 - param_specs on a mesh (any axes of make_mesh): init_state places each
   param as a DTensor by the logical rules (parallel/sharding.py), and
   the optimizer's moments, created like their params, take the same
@@ -99,8 +102,8 @@ def make_train_step(
     are the params', e.g. Transformer.param_specs(cfg)) on a mesh,
     init_state places each param by `rules`: given the module, it puts
     plain params on the mesh and into the module; given a dict, the
-    params must be placed already (params_from_jax(mesh=...)). A mesh
-    with an fsdp or tensor axis needs param_specs.
+    params must be placed already (params_from_jax(mesh=...)). With
+    param_specs None the params are replicated on any mesh.
     """
     dev = resolve_device(device)
     if optimizer is None:
@@ -113,11 +116,6 @@ def make_train_step(
     if mesh is None:
         groups, rank, size = [], 0, 1
     else:
-        other = {a: s for a, s in mesh_shape(mesh).items()
-                 if a not in _DATA_AXES and s != 1}
-        if other:
-            raise ValueError(f"mesh axes {other} shard the params: pass "
-                             f"param_specs")
         groups, rank, size = _split(mesh, _DATA_AXES)
 
     def init_state(params) -> Dict[str, Any]:

@@ -58,6 +58,12 @@ class ImpalaConfig(AlgorithmConfig):
 class ImpalaLearner(Learner):
     """V-trace actor-critic loss on time-major sequence batches."""
 
+    # a gang rank's update is one full-batch step, so its shard may hold
+    # more or fewer env columns than another rank's: all of a batch's
+    # columns train (a [50, 10] batch over 4 ranks: 2, 3, 2, 3), each
+    # rank's grads weighed by its share (LearnerGroup._local_shard)
+    uneven_shards = True
+
     def _vtrace_prelude(self, batch):
         """Shared forward + V-trace computation (used by IMPALA's
         policy-gradient loss and APPO's clipped surrogate)."""
@@ -131,8 +137,8 @@ class ImpalaLearner(Learner):
     def update_distributed(self, local_batch, minibatch_size=None,
                            num_iters=1, seed=0):
         """A gang rank's update: one full-batch step on its shard, whose
-        grads the ranks average (the JAX package's gang path takes one
-        step and reads its stats at once, unlagged)."""
+        grads the ranks sum weighed by their shares (the JAX package's
+        gang path takes one step and reads its stats at once, unlagged)."""
         stats = self._full_batch_step(local_batch)
         keys = list(stats)
         # one forcing point for every stat

@@ -104,6 +104,9 @@ class Learner:
         self.device: Optional[torch.device] = None
         self._optimizer = None
         self._world = 1
+        # a gang rank's weight on its grads in the sum over the ranks: its
+        # shard's share of the gang's rows (1 / world for equal shards)
+        self.grad_share = 1.0
         # serializes updates against weight reads and writes
         self._state_lock = threading.Lock()
         # mutable state for additional_update (e.g. kl coeff)
@@ -139,6 +142,7 @@ class Learner:
         import torch.distributed as dist
         self.build(seed)
         self._world = dist.get_world_size()
+        self.grad_share = 1.0 / self._world
 
     def update_distributed(self, local_batch: Dict[str, np.ndarray],
                            minibatch_size: Optional[int] = None,
@@ -186,7 +190,7 @@ class Learner:
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
             params, torch.autograd.grad(loss, params, allow_unused=True))]
         if self._world > 1:
-            grads = self._all_reduce_mean(grads)
+            grads = self._all_reduce_shares(grads)
         # optax.global_norm: the square root of the sum of squares
         g_norm = torch.stack([torch.sum(g * g) for g in grads]).sum().sqrt()
         clip = getattr(self.config, "grad_clip", None)
@@ -209,12 +213,15 @@ class Learner:
         out["grad_norm"] = g_norm
         return out
 
-    def _all_reduce_mean(self, grads: List[torch.Tensor]
-                         ) -> List[torch.Tensor]:
+    def _all_reduce_shares(self, grads: List[torch.Tensor]
+                           ) -> List[torch.Tensor]:
+        """The ranks' grads, each weighed by its share of the rows, summed
+        in one all-reduce: the grad of the mean loss over every rank's
+        rows (the same on every rank)."""
         import torch.distributed as dist
         flat = torch.cat([g.reshape(-1) for g in grads])
+        flat *= self.grad_share
         dist.all_reduce(flat)
-        flat /= self._world
         return [t.view_as(g) for t, g in
                 zip(flat.split([g.numel() for g in grads]), grads)]
 

@@ -127,33 +127,47 @@ class _MeshLearnerActor:
                 "backend": dist.get_backend()}
 
     def _local_shard(self, batch: Dict[str, np.ndarray]
-                     ) -> Dict[str, np.ndarray]:
-        """Equal per-rank slices along each column's data axis
-        (learner.data_axis_for), truncating the remainder so every rank
-        runs identical step counts. Multi-agent batches are nested
-        {module_id: {col: array}}; each module's rows shard on their own,
-        so every rank holds the same per-module row counts."""
+                     ) -> Tuple[Dict[str, np.ndarray], float]:
+        """(this rank's slice along each column's data axis
+        (learner.data_axis_for), its share of the rows the gang trains
+        on). Equal slices, the remainder truncated, so every rank runs
+        identical step counts; a learner whose update is one full-batch
+        step (`uneven_shards`, IMPALA's) takes every row instead, rank r
+        the rows [r n / W, (r+1) n / W), and weighs its grads by its
+        share. Multi-agent batches are nested {module_id: {col: array}};
+        each module's rows shard on their own, so every rank holds the
+        same per-module row counts."""
         if batch and all(isinstance(v, dict) for v in batch.values()):
-            return {mid: self._local_shard(sub)
-                    for mid, sub in batch.items()}
+            return {mid: self._local_shard(sub)[0]
+                    for mid, sub in batch.items()}, 1.0 / self.world
         first = next(iter(batch))
-        per = batch[first].shape[self.learner.data_axis_for(first)] \
-            // self.world
+        n = batch[first].shape[self.learner.data_axis_for(first)]
+        if getattr(self.learner, "uneven_shards", False):
+            lo, hi = self.rank * n // self.world, \
+                (self.rank + 1) * n // self.world
+            share = (hi - lo) / n
+        else:
+            per = n // self.world
+            lo, hi, share = self.rank * per, (self.rank + 1) * per, \
+                1.0 / self.world
         out = {}
         for k, v in batch.items():
             sl = [slice(None)] * v.ndim
-            sl[self.learner.data_axis_for(k)] = slice(self.rank * per,
-                                                      (self.rank + 1) * per)
+            sl[self.learner.data_axis_for(k)] = slice(lo, hi)
             out[k] = v[tuple(sl)]
-        return out
+        return out, share
 
     def update(self, batch, minibatch_size, num_iters, seed):
+        """(the update's stats on this rank's shard, the shard's share)."""
         if self._heartbeat is not None:
             # the update round is the supervisor's step unit
             self._heartbeat.note_step()
             self._heartbeat.set_phase("update")
+        shard, share = self._local_shard(batch)
+        if getattr(self.learner, "uneven_shards", False):
+            self.learner.grad_share = share
         return self.learner.update_distributed(
-            self._local_shard(batch), minibatch_size, num_iters, seed)
+            shard, minibatch_size, num_iters, seed), share
 
     def additional_update(self, **kw):
         return self.learner.additional_update(**kw)
@@ -441,19 +455,23 @@ class LearnerGroup:
         if self.elastic:
             # wedge-aware wait: a rank SIGSTOPped inside the all-reduce
             # otherwise blocks every peer for the full 600 s get
-            stats = self._await_update(refs, timeout=600)
+            replies = self._await_update(refs, timeout=600)
         else:
-            stats = ray_tpu_torch.get(refs, timeout=600)
-        # each rank's scalar stats are means over its shard; equal shards
-        # make their mean the global one (grad_norm is the same on every
-        # rank); array stats (per-sample TD errors and their batch
-        # indexes) concatenate in rank order, each rank's shard in turn
+            replies = ray_tpu_torch.get(refs, timeout=600)
+        stats = [r[0] for r in replies]
+        shares = np.array([r[1] for r in replies])
+        shares /= shares.sum()
+        # each rank's scalar stats are means over its shard; weighed by
+        # the shards' shares their sum is the global one (grad_norm is the
+        # same on every rank); array stats (per-sample TD errors and their
+        # batch indexes) concatenate in rank order, each rank's shard in
+        # turn
         out: Dict[str, Any] = {}
         for k in stats[0]:
             if getattr(stats[0][k], "ndim", 0):
                 out[k] = np.concatenate([np.asarray(s[k]) for s in stats])
             else:
-                out[k] = float(np.mean([s[k] for s in stats]))
+                out[k] = float(sum(w * s[k] for w, s in zip(shares, stats)))
         if self.elastic:
             # refresh the durable fallback: the state every rank holds
             # after this (replicated) step, what a reconfiguration

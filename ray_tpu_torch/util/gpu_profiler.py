@@ -15,6 +15,14 @@ reads one back into device time by kernel and the device's idle gaps.
 Entry points run on the card unless the caller names another device:
 ``device=None`` is CUDA, and raises where there is none; ``device="cpu"``
 traces CPU activities only.
+
+``start_server(port)`` is the live server of jax.profiler.start_server:
+a daemon thread answers ``capture(port, duration_ms, log_dir)`` (the
+counterpart of jax.collect_profile) with a trace of the process for
+that window (the card's kernels where it uses one, every thread's
+operators where it does not), written in trace()'s layout. A process runs one
+torch.profiler session at a time (CUPTI takes one subscriber): trace()
+raises, and a capture is answered with an error, while another runs.
 """
 
 from __future__ import annotations
@@ -25,7 +33,9 @@ import json
 import os
 import socket
 import tempfile
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Iterator, Optional
 
 TRACE_SUFFIX = ".pt.trace.json"
@@ -40,41 +50,166 @@ def _resolve(device):
     return resolve_device(device)
 
 
+# the process's one torch.profiler session, held by trace()
+_session = threading.Lock()
+
+
+class SessionBusy(RuntimeError):
+    """Another torch.profiler session runs in this process."""
+
+
+def _open_session() -> None:
+    import torch.autograd.profiler as autograd_profiler
+    if not _session.acquire(blocking=False):
+        raise SessionBusy("a trace of this process is already running")
+    # a session the caller started with torch.profiler directly
+    if autograd_profiler._is_profiler_enabled:
+        _session.release()
+        raise SessionBusy("a torch.profiler session is already running in "
+                          "this process")
+
+
+def _all_threads_config():
+    """torch.profiler's config recording every thread's ops, not only the
+    starting thread's (the card's kernels are recorded whatever thread
+    launched them); None where this torch lacks the option."""
+    from torch._C._profiler import _ExperimentalConfig
+    try:
+        return _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
+
+
 @contextlib.contextmanager
-def trace(log_dir: str, device=None) -> Iterator[str]:
+def trace(log_dir: str, device=None,
+          all_threads: bool = False) -> Iterator[str]:
     """Capture a trace of the with-block into a new run directory under
-    log_dir (CPU and CUDA activities; CPU only for device="cpu")."""
+    log_dir (CPU and CUDA activities; CPU only for device="cpu"; the
+    operators of this thread, of every thread with `all_threads`);
+    raises SessionBusy, before the block runs, while another
+    torch.profiler session runs in the process."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     dev = _resolve(device)
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    run = os.path.join(log_dir, "plugins", "profile",
-                       time.strftime("%Y_%m_%d_%H_%M_%S")
-                       + f"_{time.time_ns() % 10**9:09d}_{os.getpid()}")
-    os.makedirs(run, exist_ok=True)
-    prof = profile(activities=activities)
-    prof.start()
+    _open_session()
     try:
-        yield log_dir
+        path = os.path.join(log_dir, "plugins", "profile",
+                            time.strftime("%Y_%m_%d_%H_%M_%S")
+                            + f"_{time.time_ns() % 10**9:09d}_{os.getpid()}")
+        config = _all_threads_config() if all_threads else None
+        prof = profile(activities=activities,
+                       **({"experimental_config": config} if config else {}))
+        prof.start()
+        try:
+            yield log_dir
+        finally:
+            if dev.type == "cuda":
+                # intentional barrier: the window must hold the device work
+                # the block queued, or the trace under-reports it
+                torch.cuda.synchronize(dev)  # graftlint: disable=RT021
+            prof.stop()
+            os.makedirs(path, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(path, socket.gethostname() + TRACE_SUFFIX))
     finally:
-        if dev.type == "cuda":
-            # intentional barrier: the window must hold the device work
-            # the block queued, or the trace under-reports it
-            torch.cuda.synchronize(dev)  # graftlint: disable=RT021
-        prof.stop()
-        prof.export_chrome_trace(
-            os.path.join(run, socket.gethostname() + TRACE_SUFFIX))
+        _session.release()
 
 
-def start_server(port: int = 9012):
-    """jax.profiler's live profiler server has no torch.profiler
-    counterpart."""
-    raise NotImplementedError(
-        "torch.profiler has no live profiler server (ROADMAP.md, Queue 1 "
-        "item 5, 'gpu_profiler.start_server'); take a trace of a remote "
-        "process with ray_tpu_torch.util.state.profile(device=True)")
+class ProfilerServer:
+    """The live profiler server start_server returns: a daemon thread
+    answering captures on `port` until stop()."""
+
+    def __init__(self, port: int, host: str):
+        self._http = ThreadingHTTPServer((host, port), _CaptureHandler)
+        self._http.daemon_threads = True
+        self.port = self._http.server_address[1]
+        self._thread = threading.Thread(target=self._http.serve_forever,
+                                        name="gpu-profiler-server",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._http.shutdown()
+        self._http.server_close()
+        self._thread.join(timeout=10)
+
+
+def _capture_here(duration_ms: float, log_dir: str) -> str:
+    """A trace of this process for `duration_ms`, CUDA activity where the
+    process uses a card (the card's kernels, whatever thread launched
+    them), every thread's operators where it does not; the run directory
+    (the newest under log_dir: the process runs one session at a time).
+    Where the process uses a card its CPU side stays this thread's:
+    after a session recording every thread (torch 2.11), a later trace
+    in the process lost some of the card's events."""
+    import torch
+    device = "cuda" if torch.cuda.is_initialized() else "cpu"
+    with trace(log_dir, device=device, all_threads=device == "cpu"):
+        time.sleep(duration_ms / 1e3)
+    return latest_trace_dir(log_dir)
+
+
+class _CaptureHandler(BaseHTTPRequestHandler):
+    """GET /capture?duration_ms=D&log_dir=DIR -> {"trace": run dir}, or
+    409 {"error": ...} while another session runs (nothing written)."""
+
+    def do_GET(self):  # noqa: N802 - http.server's name
+        from urllib.parse import parse_qs, urlparse
+        url = urlparse(self.path)
+        query = {k: v[-1] for k, v in parse_qs(url.query).items()}
+        if url.path != "/capture" or "log_dir" not in query:
+            return self._reply(404, {"error": f"no such request: {self.path}"})
+        try:
+            run = _capture_here(float(query.get("duration_ms", 1000)),
+                                query["log_dir"])
+        except SessionBusy as e:
+            return self._reply(409, {"error": str(e)})
+        except Exception as e:  # noqa: BLE001 - answered, not raised
+            return self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+        self._reply(200, {"trace": run})
+
+    def _reply(self, status: int, body: Dict[str, Any]) -> None:
+        data = json.dumps(body).encode()
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def log_message(self, *args):  # no line on stderr a request
+        pass
+
+
+def start_server(port: int = 9012, host: str = "127.0.0.1") -> ProfilerServer:
+    """Start the live profiler server on `port` (0: one the OS picks, in
+    the returned server's .port), jax.profiler.start_server's
+    counterpart; capture() takes a trace of this process through it, and
+    the returned server's stop() ends it."""
+    return ProfilerServer(port, host)
+
+
+def capture(port: int, duration_ms: float, log_dir: str,
+            host: str = "127.0.0.1") -> str:
+    """A trace of the process serving `port` (start_server) for
+    `duration_ms`, written under `log_dir` in trace()'s layout (as
+    jax.collect_profile asks JAX's server); returns its run directory,
+    which summary() reads. Raises RuntimeError with the server's answer
+    while another torch.profiler session runs there."""
+    from urllib.error import HTTPError
+    from urllib.parse import urlencode
+    from urllib.request import urlopen
+    query = urlencode({"duration_ms": duration_ms,
+                       "log_dir": os.path.abspath(log_dir)})
+    try:
+        with urlopen(f"http://{host}:{port}/capture?{query}",
+                     timeout=duration_ms / 1e3 + 120) as reply:
+            return json.loads(reply.read())["trace"]
+    except HTTPError as e:
+        raise RuntimeError(f"capture refused ({e.code}): "
+                           f"{json.loads(e.read()).get('error')}") from None
 
 
 def annotate(name: str):

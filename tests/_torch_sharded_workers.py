@@ -1,6 +1,7 @@
 """Gloo ranks of the port's multi-rank tests (tests/test_torch_sharded_*.py,
 test_torch_seq_parallel.py, test_torch_moe.py, test_torch_pipeline.py,
-test_torch_multislice.py).
+test_torch_multislice.py, test_torch_vocab_parallel.py,
+test_torch_mesh_steps.py).
 
     python tests/_torch_sharded_workers.py JOB INPUT RANK WORLD RENDEZVOUS OUTPUT
 
@@ -160,6 +161,84 @@ def three_d(data):
     return {"loss": losses, "step": state["step"],
             "placements": {n: tuple(p.placements)
                            for n, p in state["params"].items()}}
+
+
+def vocab_parallel(data):
+    """The vocab-parallel embedding, head and cross-entropy on fsdp=2 x
+    tensor=2, 4 ranks: for tied and untied embeddings, chunked and not,
+    STEPS steps (the first step's grads too), and the widths of every
+    head the loss multiplied by; the logits of forward."""
+    from ray_tpu_torch.models import TINY
+    from ray_tpu_torch.models import transformer as tmod
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(data=1, fsdp=2, tensor=2), device="cpu")
+    out = {}
+    dot = tmod._dot_f32
+    for case, (tie, chunk) in data["cases"].items():
+        cfg = TINY.replace(dtype="float32", tie_embeddings=tie,
+                           loss_chunk=chunk)
+        widths = []
+
+        def recording(x, w):
+            widths.append(tuple(w.shape))
+            return dot(x, w)
+
+        model, state, step = _build(cfg, data["params"][case], mesh)
+        if case == "untied":
+            logits = model(_block(data["batch"]["tokens"][:, :-1], mesh,
+                                  {0: ("data", "fsdp")}), mesh=mesh)
+            out["logits"] = _assemble(logits, mesh, {0: ("data", "fsdp")})
+        tmod._dot_f32 = recording
+        try:
+            state, m = step(state, data["batch"])
+        finally:
+            tmod._dot_f32 = dot
+        grads = {n: p.grad.full_tensor().numpy()
+                 for n, p in state["params"].items()}
+        state, losses, gnorms = _run(state, step, data["batch"], STEPS - 1)
+        out[case] = {"loss": [m["loss"].item()] + losses,
+                     "grad_norm": [m["grad_norm"].item()] + gnorms,
+                     "grads": grads, "params": _full(state["params"]),
+                     "head_widths": widths}
+    return out
+
+
+def mesh_steps(data):
+    """On 2 x (data=2 x tensor=2), 8 ranks: the replicated-params step
+    (param_specs None) and the sharded step with "dcn" in the batch rules,
+    STEPS steps each from the same params."""
+    from ray_tpu_torch.models import TINY, Transformer
+    from ray_tpu_torch.parallel import (MeshConfig, MultiSliceConfig,
+                                        ShardingRules, make_multislice_mesh)
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step
+
+    cfg = TINY.replace(dtype="float32")
+    mesh = make_multislice_mesh(MultiSliceConfig(
+        num_slices=2, per_slice=MeshConfig(data=2, tensor=2)), device="cpu")
+    out = {}
+    model = Transformer(cfg, device="cpu")
+    model.load_jax_params(data["params"])
+    init, step = make_train_step(lambda p, b: model.loss(b), None, mesh,
+                                 optimizer=adamw(1e-3, weight_decay=0.01),
+                                 device="cpu")
+    state, losses, gnorms = _run(init(model), step, data["batch"], STEPS)
+    out["replicated"] = {
+        "loss": losses, "grad_norm": gnorms,
+        "params": {n: p.detach().numpy().copy()
+                   for n, p in state["params"].items()}}
+
+    rules = ShardingRules().replace(batch=("dcn", "data", "fsdp"))
+    model = Transformer(cfg, device="meta")
+    model.load_jax_params(data["params"], mesh=mesh, rules=rules)
+    init, step = make_train_step(
+        lambda p, b: model.loss(b, mesh=mesh, rules=rules),
+        Transformer.param_specs(cfg), mesh,
+        optimizer=adamw(1e-3, weight_decay=0.01), rules=rules, device="cpu")
+    state, losses, gnorms = _run(init(model), step, data["batch"], STEPS)
+    out["dcn"] = {"loss": losses, "grad_norm": gnorms,
+                  "params": _full(state["params"])}
+    return out
 
 
 def _coord(mesh):
@@ -398,9 +477,8 @@ def pipeline_job(data):
 
 
 def multislice(data):
-    """2-slice meshes on 8 ranks: 2 x (data=2 x tensor=2)'s layout and a
-    tensor-split matmul, and a data-parallel grad over dcn x data on
-    2 x (data=4)."""
+    """The 2-slice mesh 2 x (data=2 x tensor=2) on 8 ranks: its layout, a
+    tensor-split matmul, and a data-parallel grad over dcn x data."""
     import torch
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -416,13 +494,11 @@ def multislice(data):
            "tensor group": sorted(
                torch.distributed.get_process_group_ranks(
                    mesh.get_group("tensor")))}
-    # replicated params need a mesh of data axes only (a tensor axis asks
-    # for param_specs): 2 slices of data=4
-    dp = make_multislice_mesh(MultiSliceConfig(
-        num_slices=2, per_slice=MeshConfig(data=-1)), device="cpu")
+    # replicated params: the rows split over dcn x data, the tensor ranks
+    # sharing theirs
     w = torch.nn.Parameter(torch.tensor(data["w"]))
     init, step = make_train_step(
-        lambda p, b: torch.mean((b["x"] @ p["w"] - b["y"]) ** 2), None, dp,
+        lambda p, b: torch.mean((b["x"] @ p["w"] - b["y"]) ** 2), None, mesh,
         optimizer=lambda ps: torch.optim.SGD(ps, lr=0.0), device="cpu")
     state, metrics = step(init({"w": w}), {"x": data["x"], "y": data["y"]})
     out["grad"] = w.grad.numpy()
@@ -452,7 +528,8 @@ def hang(data):
 
 JOBS = {"fsdp_tensor": fsdp_tensor, "three_d": three_d, "hang": hang,
         "seq_parallel": seq_parallel, "moe_step": moe_step,
-        "pipeline": pipeline_job, "multislice": multislice}
+        "pipeline": pipeline_job, "multislice": multislice,
+        "vocab_parallel": vocab_parallel, "mesh_steps": mesh_steps}
 
 
 class Ranks:

@@ -6,7 +6,8 @@ Mirrors of tests/test_tpu_profiler.py's three tests with device="cpu"
 the device rule (no device means the card, and raises without one), the
 trace summary's arithmetic on a synthetic trace, and device_profile's
 report: skipped where CUDA is not initialized, a trace directory and the
-card names where it is. The remote path (util.state.profile(device=True)
+card names where it is; the live server (start_server, capture) and the
+one session a process. The remote path (util.state.profile(device=True)
 through a cluster) is in tests/test_torch_runtime.py, on its cluster.
 """
 
@@ -70,9 +71,68 @@ def test_trace_defaults_to_cuda_and_raises_without_it(tmp_path,
         gpu_profiler.profile_step(lambda: None, log_dir=str(tmp_path))
 
 
-def test_start_server_names_its_roadmap_row():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gpu_profiler.start_server(9012)
+def test_start_server_captures_the_process_in_the_trace_layout(tmp_path):
+    """jax.profiler.start_server's counterpart: capture() through the
+    server's port takes a trace of the process (here a matmul loop on
+    another thread: with no card in use, every thread's operators) and
+    answers with its run directory, the one latest_trace_dir finds; once
+    stopped the server takes no capture."""
+    server = gpu_profiler.start_server(0)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (64, 64)).astype(np.float32))
+    stop = threading.Event()
+
+    def work():
+        while not stop.is_set():
+            with gpu_profiler.annotate("server-region"):
+                (x @ x).sum()
+            stop.wait(0.005)
+
+    worker = threading.Thread(target=work)
+    worker.start()
+    try:
+        run = gpu_profiler.capture(server.port, 300, str(tmp_path))
+    finally:
+        stop.set()
+        worker.join(timeout=30)
+        server.stop()
+    assert run == gpu_profiler.latest_trace_dir(str(tmp_path))
+    assert os.path.dirname(run) == str(tmp_path / "plugins" / "profile")
+    names = {e.get("name") for e in _trace_json(run)["traceEvents"]}
+    assert {"server-region", "aten::mm"} <= names
+    with pytest.raises(OSError):
+        gpu_profiler.capture(server.port, 10, str(tmp_path / "after"))
+
+
+@pytest.mark.parametrize("other", ["torch.profiler", "trace"])
+def test_capture_while_another_session_runs_is_an_error(tmp_path, other):
+    """One torch.profiler session a process (CUPTI takes one subscriber):
+    a capture while another runs, started with torch.profiler directly or
+    by trace(), is answered with an error and writes nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    server = gpu_profiler.start_server(0)
+    try:
+        if other == "trace":
+            session = gpu_profiler.trace(str(tmp_path / "own"), device="cpu")
+        else:
+            session = profile(activities=[ProfilerActivity.CPU])
+        with session:
+            with pytest.raises(RuntimeError, match="already running"):
+                gpu_profiler.capture(server.port, 50, str(tmp_path / "c"))
+        assert gpu_profiler.latest_trace_dir(str(tmp_path / "c")) is None
+        run = gpu_profiler.capture(server.port, 50, str(tmp_path / "c"))
+        assert run == gpu_profiler.latest_trace_dir(str(tmp_path / "c"))
+    finally:
+        server.stop()
+
+
+def test_trace_refuses_a_second_session(tmp_path):
+    with gpu_profiler.trace(str(tmp_path / "a"), device="cpu"):
+        with pytest.raises(gpu_profiler.SessionBusy):
+            with gpu_profiler.trace(str(tmp_path / "b"), device="cpu"):
+                pass
+    assert gpu_profiler.latest_trace_dir(str(tmp_path / "b")) is None
+    assert gpu_profiler.latest_trace_dir(str(tmp_path / "a")) is not None
 
 
 def test_summary_of_a_synthetic_trace(tmp_path):

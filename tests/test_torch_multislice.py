@@ -9,12 +9,11 @@ rejected, the DCN validation, and MultiSliceConfig.resolve and
 per_slice_process_groups equal to the JAX ones.
 
 One spawn of 8 gloo ranks (tests/_torch_sharded_workers.py, job
-"multislice"): a data-parallel grad over dcn x data (make_train_step
-with replicated params, the batch's rows over both axes) on 2 x (data=4)
-equals the whole batch's grad (jax.grad on one device, rtol 2e-5, atol
-2e-6: the JAX test's bars; the JAX test's 2 x (data=2 x tensor=2) mesh
-would need param_specs in the port, whose data-parallel step takes data
-axes only); on 2 x (data=2 x tensor=2) each tensor group lies inside a
+"multislice") on the JAX test's 2 x (data=2 x tensor=2) mesh: a
+data-parallel grad over dcn x data (make_train_step with replicated
+params, the batch's rows over both axes, the tensor ranks sharing
+theirs) equals the whole batch's grad (jax.grad on one device, rtol
+2e-5, atol 2e-6: the JAX test's bars); each tensor group lies inside a
 slice, and a matmul with the rows split over dcn and the columns over
 tensor (DTensors on the mesh) equals the dense product.
 """

@@ -445,7 +445,10 @@ def test_replay_shards_lists_live_shards(cluster):
 def test_device_profile_through_the_cluster(cluster):
     """util.state.profile(device=True): one device_profile entry per
     worker (and the driver), each skipped here, where no process has
-    initialized CUDA; an actor's worker is among them."""
+    initialized CUDA; an actor's worker is among them. Every worker alive
+    both before and after the profile is among them: one that leaves in
+    between (an idle worker the pool retires, the module's earlier tests'
+    tasks ending) cannot answer, and is not asked for."""
     from ray_tpu_torch.util import state
 
     @ray_tpu_torch.remote
@@ -453,11 +456,15 @@ def test_device_profile_through_the_cluster(cluster):
         def pid(self):
             return os.getpid()
 
+    def alive():
+        return {w["worker_id"] for w in state.list_workers()
+                if w.get("alive", True)}
+
     actor = Pid.remote()
     pid = ray_tpu_torch.get(actor.pid.remote(), timeout=60)
-    workers = {w["worker_id"] for w in state.list_workers()
-               if w.get("alive", True)}
+    before = alive()
     out = state.profile(duration=0.1, device=True)
+    workers = before & alive()
     profiles = out["profiles"]
     assert out["unreachable"] == []
     assert len({p["proc_uid"] for p in profiles}) == len(profiles)
