@@ -428,8 +428,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the random tokens the mean next-token NLL ln(vocab) +/- 0.5. Each
      route's forward ms printed. launches_by_path "entry" is the flash
      route's total.
+ 20. tools (run_tools, last in the lane): the measurement tools of
+     ray_tpu_torch/tools/ as a user runs them (chip_tools.py runs all
+     six at their defaults, in a chip call of its own). bench_ablate's
+     run_variant for "best" (the slice's configuration: GPT-2-125M at
+     full width, batch 16 x 1024, bf16 compute, f32 params, AdamW),
+     "best_noattn" (the attention hook swapped for identity) and "best"
+     again, each its WARMUP + STEPS steps with the launch counters
+     zeroed just before: 12 launches of each kernel a step in both
+     "best" runs and none in "best_noattn" (so the hook came back);
+     every loss finite, the first run's below ln(vocab) + 0.5 and the
+     second's within TOOLS_LOSS_TOL of it (the card's backward kernels
+     sum in no fixed order). Beside them, in processes of their own:
+     `python -m ray_tpu_torch.tools.bench_core --n 150 --skip-dag` under
+     the floors of the JAX package's smoke test
+     (tests/test_bench_smoke.py), and transport_bench's put/get and
+     batched get, which must take one store RPC. Prints each variant's
+     step ms and tokens/s, the tools' numbers and the phase's peak
+     memory. launches_by_path "tools" is the phase's total.
 Run order: phases 1-6, 9, 8 and 11 one after the other; then the lane,
-"server" and phases 10, 7, 12 and 13 in a process of their own (this
+"server" and phases 10, 7, 12, 13 and 20 in a process of their own (this
 script with --lane; its lines marked "lane|"), beside phases 15, 14, 16
 and 19 in this process; once the lane has ended, phases 17 and 18. What runs
 beside the lane shares the card and the host's cores with it: those
@@ -505,7 +523,8 @@ KERNEL_SOURCES = {
                       "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
     "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd_dq.cu",
                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1456")}
-BWD_LIBRARY = "aten._scaled_dot_product_flash_attention_backward (dQ, dK, dV)"
+BWD_LIBRARY = ("scaled_dot_product_attention's backward as dispatched, "
+               "causal (dQ, dK, dV)")
 # phase "tooling": the sentinel's counters, its steps, its cost bar, the
 # bytes the slice's step forces inside "train.step" (none: PERF.md §6),
 # and each kernel's function name in a trace
@@ -675,16 +694,15 @@ def bounds_ms(name, b, t, h, d, peak_flops, peak_bw):
 
 
 def library_backward(torch, qt, kt, vt, dot, scale):
-    """A closure running PyTorch's flash-attention backward on [B, H, T, D]
-    views, its saved tensors taken from PyTorch's own forward on the same
-    q, k, v (a yardstick only)."""
-    aten = torch.ops.aten
-    out, lse, cq, ck, mq, mk, seed, offset, _ = \
-        aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True,
-                                                 False, scale=scale)
-    return lambda: aten._scaled_dot_product_flash_attention_backward(
-        dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True, seed, offset,
-        scale=scale)
+    """A closure running scaled_dot_product_attention's backward on
+    [B, H, T, D] views, the backend the dispatcher picks (autograd through
+    one forward on the same q, k, v, kept with retain_graph), giving dQ,
+    dK and dV (a yardstick only)."""
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=True, scale=scale)
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), dot,
+                                       retain_graph=True)
 
 
 def kernel_times(torch, fa, shape, errs, tensors, peak_flops, peak_bw):
@@ -708,9 +726,9 @@ def kernel_times(torch, fa, shape, errs, tensors, peak_flops, peak_bw):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     dot = do.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    # yardsticks only, never on the port's path: the forward, and
-    # PyTorch's flash-attention backward, which gives dQ, dK and dV in one
-    # call (both backward rows carry its time)
+    # yardsticks only, never on the port's path: the forward, and its
+    # backward as dispatched, which gives dQ, dK and dV in one call (both
+    # backward rows carry its time)
     bwd_call = library_backward(torch, qt, kt, vt, dot, scale)
     library = {
         "flash_fwd": ("scaled_dot_product_attention, causal",
@@ -1150,7 +1168,10 @@ def process_start_time():
 # "tooling"'s sessions, its capture once held none of the step's forward
 # launches (torch 2.11). "parallel" runs next, beside "serve", the
 # lightest on the card, so that its 30 GiB never meet "tune"'s trials.
-LANE_PHASES = ("server", "parallel", "rllib", "offpolicy", "rllib_rest")
+# "tools" runs last: its GPT-2 steps (26 GiB at peak) meet the end of
+# "ops", past its job's steps.
+LANE_PHASES = ("server", "parallel", "rllib", "offpolicy", "rllib_rest",
+               "tools")
 LANE_S = 1000       # the lane's process, at most
 LANE_STOP_S = 30    # from SIGTERM to SIGKILL
 
@@ -1188,6 +1209,8 @@ def lane_entry(out, llama_first, profile):
     with phase("rllib_rest"):
         by_path["rllib_rest"] = flashless(torch, fa, "rllib_rest",
                                           run_rllib_rest, kind, smi)
+    with phase("tools"):
+        by_path["tools"] = run_tools(torch, fa, kind, smi)
     with open(out, "w") as f:
         json.dump(by_path, f)
     return 0
@@ -6527,6 +6550,128 @@ def run_entry(torch, fa, kind, smi):
           flush=True)
     del dense, flash, params
     torch.cuda.empty_cache()
+    return total
+
+
+# phase "tools": bench_ablate's variants in order, the bar between the two
+# "best" losses, bench_core's arguments (the JAX package's smoke test's),
+# and transport_bench's put/get and batched get in a process of their own
+TOOLS_VARIANTS = ("best", "best_noattn", "best")
+TOOLS_LOSS_TOL = 1e-2
+TOOLS_CORE_ARGS = ("--n", "150", "--skip-dag", "--format", "json")
+TOOLS_PROC_S = 300
+TOOLS_TRANSPORT = r"""
+import json
+import ray_tpu_torch
+from ray_tpu_torch.tools import transport_bench as tb
+ray_tpu_torch.init(num_cpus=2, object_store_memory=512 << 20)
+results = {}
+tb.bench_put_get(results)
+tb.bench_multi_get(results)
+ray_tpu_torch.shutdown()
+print(json.dumps(results))
+"""
+
+
+def smoke_floors():
+    """The floors of the JAX package's tier-1 smoke of its bench_core
+    (tests/test_bench_smoke.py, read as it is)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "_bench_smoke", os.path.join(REPO, "tests", "test_bench_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return dict(mod._FLOORS)
+
+
+def last_json(out):
+    """The JSON document that ends a tool's stdout: one line, or an
+    indented document from its first line "{" on."""
+    lines = out.rstrip().splitlines()
+    for i in range(len(lines) - 1, -1, -1):
+        if lines[i].startswith("{"):
+            return json.loads("\n".join(lines[i:]))
+    raise ValueError(f"no JSON document in {out[-2000:]!r}")
+
+
+def run_tools(torch, fa, kind, smi):
+    """Phase "tools" (phase 20 above); returns its launches."""
+    import subprocess
+
+    from ray_tpu_torch.tools import bench_ablate
+
+    floors = smoke_floors()
+    core = [sys.executable, "-m", "ray_tpu_torch.tools.bench_core",
+            *TOOLS_CORE_ARGS]
+    for name, value in floors.items():
+        core += ["--floor", f"{name}={value}"]
+    procs = {name: subprocess.Popen(argv, cwd=REPO, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE)
+             for name, argv in (
+                 ("bench_core", core),
+                 ("transport_bench",
+                  [sys.executable, "-c", TOOLS_TRANSPORT]))}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        layers = slice_config().n_layers
+        total = {n: 0 for n in KERNEL_SOURCES}
+        rows = []
+        for name in TOOLS_VARIANTS:
+            fa.reset_launches()
+            row = bench_ablate.run_variant(name, **bench_ablate.VARIANTS[name])
+            launches = {n: fa.launches[n] for n in KERNEL_SOURCES}
+            rows.append(row)
+            for n in total:
+                total[n] += launches[n]
+            want = 0 if name == "best_noattn" else layers * row["steps"]
+            print(f"  {name}: step {row['step_ms']:.2f} ms, "
+                  f"{row['tokens_per_sec']:.1f} tokens/s, loss "
+                  f"{row['loss']:.6f}, launches {launches} "
+                  f"({row['steps']} steps); {kind}; {smi}", flush=True)
+            if not math.isfinite(row["loss"]):
+                raise AssertionError(f"{name}: non-finite loss {row}")
+            if launches != {n: want for n in launches}:
+                raise AssertionError(f"{name}: expected {want} launches of "
+                                     f"each kernel, got {launches}")
+        bound = math.log(slice_config().vocab_size) + 0.5
+        first, again = rows[0]["loss"], rows[2]["loss"]
+        if not first < bound:
+            raise AssertionError(f"best's loss {first} is not below {bound}")
+        if abs(again - first) > TOOLS_LOSS_TOL:
+            raise AssertionError(f"best after best_noattn: loss {again}, "
+                                 f"the first {first} (bar {TOOLS_LOSS_TOL})")
+        print(f"  the two best losses {abs(again - first):.3e} apart; peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        docs = {}
+        for name, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=TOOLS_PROC_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{name} ran past {TOOLS_PROC_S} s")
+            if proc.returncode != 0:
+                raise AssertionError(f"{name} exited {proc.returncode}:\n"
+                                     f"{out[-3000:]}\n{err[-3000:]}")
+            docs[name] = last_json(out)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    results = docs["bench_core"]["results"]
+    print("  bench_core --n 150: " + ", ".join(
+        f"{k} {v['value']} {v['unit']} (floor {floors.get(k)})"
+        for k, v in results.items()), flush=True)
+    missing = sorted(set(floors) - set(results))
+    if missing:
+        raise AssertionError(f"bench_core lacks {missing}")
+    transport = docs["transport_bench"]
+    print(f"  transport_bench: {json.dumps(transport)}", flush=True)
+    if transport["multi_get_store_rpcs"] != 1:
+        raise AssertionError(f"a batched get took "
+                             f"{transport['multi_get_store_rpcs']} store "
+                             f"RPCs, not 1")
     return total
 
 

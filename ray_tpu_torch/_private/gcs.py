@@ -816,7 +816,9 @@ class GcsServer:
         nm_replies, cw_replies, unreachable = \
             spans_lib.gather_cluster_snapshots(
                 self, "nm_profile_collect", "cw_profile_collect",
-                timeout=duration_s + self.PROFILE_COLLECT_GRACE_S,
+                timeout=duration_s + self.PROFILE_COLLECT_GRACE_S + (
+                    profiler_lib.device_export_s(duration_s) if device
+                    else 0.0),
                 grace_s=2.0, concurrent=True,
                 call_kwargs={"duration_s": duration_s, "hz": hz,
                              "device": device})

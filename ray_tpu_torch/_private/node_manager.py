@@ -1367,10 +1367,11 @@ class NodeManager:
             own_thread = threading.Thread(target=_own, daemon=True,
                                           name="nm-profile-own")
             own_thread.start()
+        grace = self.PROFILE_WORKER_GRACE_S + (
+            profiler_lib.device_export_s(duration_s) if device else 0.0)
         pulled = spans_lib.pull_snapshots(
             worker_addrs, "cw_profile_collect",
-            timeout=duration_s + self.PROFILE_WORKER_GRACE_S,
-            call_kwargs=kwargs)
+            timeout=duration_s + grace, call_kwargs=kwargs)
         if own_thread is not None:
             own_thread.join(timeout=duration_s + 5.0)
         profiles = [p for p in (own_box[0],) if p is not None]

@@ -368,6 +368,19 @@ _device_lock = threading.Lock()
 _device_session: Optional[Dict[str, Any]] = None
 
 
+def device_export_s(duration_s: float) -> float:
+    """Time a device trace may take to be written out after a window of
+    `duration_s`, which the collect's deadlines add in device mode: a
+    deadline of the window plus the CPU sampler's grace drops a busy
+    process's trace whose export outlasts it. The export grows with what
+    the window recorded: a GPT-2-125M training loop on an H100 (~23 MiB
+    of trace a window second) answered 7.46, 21.18 and 59.29 s after
+    windows of 2, 10 and 30 s (chip_profile_export.py), under the line
+    3.8 + 1.85 s a window second; this allows about twice that line.
+    Windows above 30 s (up to the 120 s cap) are unmeasured."""
+    return 10.0 + 4.0 * duration_s
+
+
 def device_profile(duration_s: float = 5.0,
                    log_dir: Optional[str] = None) -> Dict[str, Any]:
     """`ray_tpu profile --device`: run a torch.profiler trace (CPU and

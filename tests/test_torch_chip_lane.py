@@ -36,7 +36,7 @@ def test_every_phase_runs_once_in_the_lane_or_in_main():
     assert tuple(lane) == chip_smoke.LANE_PHASES
     listed = re.findall(r"^ {1,2}\d+\. (?:the )?([a-z_]+)",
                         chip_smoke.__doc__, re.MULTILINE)
-    assert len(listed) == 19
+    assert len(listed) == 20
     assert sorted(main + lane) == sorted(listed + ["server"])
     # the capture first, in a process no other profiler session has run in
     assert lane[0] == "server"
