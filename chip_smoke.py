@@ -446,8 +446,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
      batched get, which must take one store RPC. Prints each variant's
      step ms and tokens/s, the tools' numbers and the phase's peak
      memory. launches_by_path "tools" is the phase's total.
+ 21. nodes (run_nodes, after "tools" in the lane, within NODES_S): a
+     Cluster of its own whose in-process head holds no GPU and one CPU,
+     and a node manager started under CUDA_VISIBLE_DEVICES=0 with one
+     CPU, as a second host holding the card. A one-worker TorchTrainer
+     (NCCL), which only that node can place, takes NODES_STEPS steps of
+     phase 5's configuration on phase 5's batch shape through the
+     kernels: the worker on that node, seeing "0" and one card; every
+     loss finite, the first below ln(vocab) + 0.5, the last below the
+     first; n_layers launches of each kernel a step. Then ES (CartPole)
+     with two evaluation actors, one on each node (each node's one CPU
+     takes one), against num_workers=0: the same theta after ES_ITERS
+     iterations. launches_by_path "nodes" is the worker's total.
 Run order: phases 1-6, 9, 8 and 11 one after the other; then the lane,
-"server" and phases 10, 7, 12, 13 and 20 in a process of their own (this
+"server" and phases 10, 7, 12, 13, 20 and 21 in a process of their own (this
 script with --lane; its lines marked "lane|"), beside phases 15, 14, 16
 and 19 in this process; once the lane has ended, phases 17 and 18. What runs
 beside the lane shares the card and the host's cores with it: those
@@ -1168,10 +1180,12 @@ def process_start_time():
 # "tooling"'s sessions, its capture once held none of the step's forward
 # launches (torch 2.11). "parallel" runs next, beside "serve", the
 # lightest on the card, so that its 30 GiB never meet "tune"'s trials.
-# "tools" runs last: its GPT-2 steps (26 GiB at peak) meet the end of
-# "ops", past its job's steps.
+# "tools" runs next: its GPT-2 steps (26 GiB at peak) meet the end of
+# "ops", past its job's steps. "nodes" runs last, under a deadline of its
+# own (NODES_S): a short phase whose worker holds the card for a few
+# steps while the main process waits on the lane.
 LANE_PHASES = ("server", "parallel", "rllib", "offpolicy", "rllib_rest",
-               "tools")
+               "tools", "nodes")
 LANE_S = 1000       # the lane's process, at most
 LANE_STOP_S = 30    # from SIGTERM to SIGKILL
 
@@ -1211,6 +1225,8 @@ def lane_entry(out, llama_first, profile):
                                           run_rllib_rest, kind, smi)
     with phase("tools"):
         by_path["tools"] = run_tools(torch, fa, kind, smi)
+    with phase("nodes"):
+        by_path["nodes"] = run_nodes(torch, kind, smi)
     with open(out, "w") as f:
         json.dump(by_path, f)
     return 0
@@ -6673,6 +6689,136 @@ def run_tools(torch, fa, kind, smi):
                              f"{transport['multi_get_store_rpcs']} store "
                              f"RPCs, not 1")
     return total
+
+
+NODES_S = 90        # phase "nodes", at most
+NODES_STEPS = 3
+ES_ITERS = 2
+
+
+def nodes_loop(config):
+    """Phase "nodes"' train loop, in the worker the added node starts:
+    NODES_STEPS slice steps on the card that node handed it; reports the
+    worker's node, cards, losses and launches."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import get_runtime_context, train
+    from ray_tpu_torch.models import Transformer
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    model = Transformer(config["cfg"], seed=SEED)
+    mesh = make_mesh(MeshConfig(data=-1))
+    init_state, train_step = make_train_step(
+        lambda p, bt: model.loss(bt), None, mesh,
+        optimizer=adamw(1e-4, weight_decay=0.01))
+    state = init_state(dict(model.named_parameters()))
+    batch = {"tokens": torch.tensor(config["tokens"], device="cuda")}
+    fa.reset_launches()
+    losses = []
+    for _ in range(NODES_STEPS):
+        state, metrics = train_step(state, batch)
+        losses.append(metrics["loss"].item())
+    train.report({"node": get_runtime_context().get_node_id(),
+                  "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                  "cards": torch.cuda.device_count(),
+                  "backend": dist.get_backend(), "losses": losses,
+                  "launches": dict(fa.launches),
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+
+def es_config(workers):
+    from ray_tpu_torch.rllib import ESConfig
+    return (ESConfig().environment("CartPole-v1")
+            .training(lr=0.03, sigma=0.1, num_perturbations=8,
+                      episode_horizon=100, num_workers=workers)
+            .rl_module(model_hiddens=(32, 32)).debugging(seed=SEED))
+
+
+def run_nodes(torch, kind, smi):
+    """Phase "nodes" (phase 21 above); returns its launches."""
+    import numpy as np
+
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    from ray_tpu_torch.util import state as state_api
+
+    t0 = time.perf_counter()
+    cfg = slice_config()
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (BATCH, cfg.max_seq_len + 1)).astype(np.int64)
+    root = tempfile.mkdtemp(prefix="chip_smoke_nodes_")
+    cluster = Cluster(head_node_args={"num_cpus": 1, "resources": {"GPU": 0}})
+    try:
+        head = cluster.head_node.node_id_hex
+        node = cluster.add_node(num_cpus=1, env={
+            "CUDA_VISIBLE_DEVICES": "0"}).node_id_hex
+        cluster.connect()
+        gpus = {n["node_id"]: n["resources_total"].get("GPU", 0.0)
+                for n in state_api.list_nodes()}
+        if gpus != {head: 0.0, node: 1.0}:
+            raise AssertionError(f"the nodes' GPUs {gpus}: the head should "
+                                 f"hold none and the node one")
+        start_s = time.perf_counter() - t0
+        result = TorchTrainer(
+            nodes_loop, train_loop_config={"cfg": cfg, "tokens": tokens},
+            scaling_config=ScalingConfig(num_workers=1),
+            run_config=RunConfig(storage_path=root, name="nodes")).fit()
+        if result.error is not None:
+            raise AssertionError(f"the trainer failed: {result.error!r}")
+        m = result.metrics
+        fit_s = time.perf_counter() - t0 - start_s
+        local, remote = es_config(0).build(), es_config(2).build()
+        try:
+            for _ in range(ES_ITERS):
+                local.train()
+                remote.train()
+            actors = sorted(a["node_id"] for a in state_api.list_actors(
+                {"class_name": "ESEvalWorker", "state": "ALIVE"}))
+            es_equal = np.array_equal(remote._theta, local._theta)
+        finally:
+            remote.stop()
+            local.stop()
+    finally:
+        cluster.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    took = time.perf_counter() - t0
+    losses, launches = m["losses"], m["launches"]
+    want = {n: cfg.n_layers * NODES_STEPS for n in KERNEL_SOURCES}
+    print(f"  nodes: cluster {start_s:.1f} s; fit() {fit_s:.1f} s, the "
+          f"worker on the {'added node' if m['node'] == node else 'head'} "
+          f"seeing CUDA_VISIBLE_DEVICES {m['visible']!r} ({m['cards']} "
+          f"card, {m['backend']}); losses {['%.4f' % x for x in losses]}; "
+          f"launches {launches}; peak {m['peak_gib']:.2f} GiB; ES's actors "
+          f"on the head and the node: {actors == sorted([head, node])}, "
+          f"theta equal to num_workers=0's: {es_equal}; {took:.1f} s in all"
+          f"; {kind}; {smi}", flush=True)
+    if (m["node"], m["visible"], m["cards"], m["backend"]) != (
+            node, "0", 1, "nccl"):
+        raise AssertionError(f"the worker ran on {m['node']} seeing "
+                             f"{m['visible']!r} ({m['cards']} cards, "
+                             f"{m['backend']}), not on node {node} with "
+                             f"card '0' over NCCL")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[0] < math.log(cfg.vocab_size) + 0.5
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"losses {losses}")
+    if {n: launches.get(n) for n in KERNEL_SOURCES} != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if actors != sorted([head, node]):
+        raise AssertionError(f"ES's actors sit on {actors}, not one on each "
+                             f"of {[head, node]}")
+    if not es_equal:
+        raise AssertionError("ES's theta with two actors differs from "
+                             "num_workers=0's")
+    if took > NODES_S:
+        raise AssertionError(f"phase nodes took {took:.1f} s, past its "
+                             f"{NODES_S} s")
+    return {n: launches[n] for n in KERNEL_SOURCES}
 
 
 if __name__ == "__main__":

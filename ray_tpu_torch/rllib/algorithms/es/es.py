@@ -169,11 +169,17 @@ class ES(Algorithm):
             return self._local_eval.evaluate(flat32, seeds, ep_seed)
         import ray_tpu_torch
         n = len(self._eval_workers)
-        chunks = [seeds[i::n] for i in range(n)]
-        refs = [w.evaluate.remote(flat32, chunk, ep_seed)
-                for w, chunk in zip(self._eval_workers, chunks) if chunk]
-        return [r for part in ray_tpu_torch.get(refs, timeout=600)
-                for r in part]
+        chunks = [(i, seeds[i::n]) for i in range(n) if seeds[i::n]]
+        refs = [self._eval_workers[i].evaluate.remote(flat32, chunk, ep_seed)
+                for i, chunk in chunks]
+        # back in the seeds' order, as the local evaluation returns them:
+        # the centered ranks break ties by position, so another order
+        # gives another update
+        out: List[Dict[str, Any]] = [{} for _ in seeds]
+        for (i, _), part in zip(chunks, ray_tpu_torch.get(refs,
+                                                          timeout=600)):
+            out[i::n] = part
+        return out
 
     def training_step(self) -> Dict[str, Any]:
         cfg = self.config

@@ -4,7 +4,9 @@ docstring runs once, in the lane or in main(), and the phases whose times
 are gated or whose learning bars follow the host's pace stay out of the
 lane and out of its window. The lane's process reports its failure to
 main() (here, where there is no card, its phases cannot start) and
-stop() leaves nothing of it running."""
+stop() leaves nothing of it running. Phase "nodes" runs last in the
+lane under its own deadline, and chip_multicard.py lists its three
+phases across node managers."""
 
 import importlib.util
 import inspect
@@ -36,7 +38,7 @@ def test_every_phase_runs_once_in_the_lane_or_in_main():
     assert tuple(lane) == chip_smoke.LANE_PHASES
     listed = re.findall(r"^ {1,2}\d+\. (?:the )?([a-z_]+)",
                         chip_smoke.__doc__, re.MULTILINE)
-    assert len(listed) == 20
+    assert len(listed) == 21
     assert sorted(main + lane) == sorted(listed + ["server"])
     # the capture first, in a process no other profiler session has run in
     assert lane[0] == "server"
@@ -53,6 +55,26 @@ def test_gated_and_host_paced_phases_run_outside_the_lanes_window(alone):
     at = main.index(f'with phase("{alone}")')
     assert alone not in chip_smoke.LANE_PHASES
     assert at < start or at > join
+
+
+def test_nodes_runs_last_in_the_lane_under_its_own_deadline():
+    """Phase "nodes" crosses a node manager's card hand-off in the lane,
+    after "tools", and fails past NODES_S (90 s) of its own."""
+    assert chip_smoke.LANE_PHASES[-2:] == ("tools", "nodes")
+    assert chip_smoke.NODES_S == 90
+    src = inspect.getsource(chip_smoke.run_nodes)
+    assert "took > NODES_S" in src
+
+
+def test_multicard_lists_the_phases_across_node_managers():
+    spec = importlib.util.spec_from_file_location(
+        "chip_multicard", REPO / "chip_multicard.py")
+    multicard = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(multicard)
+    assert {"nodes", "nodes_narrow", "nodes_rl"} <= set(multicard.PHASES)
+    assert multicard.NODE_CARDS == ("0,1", "2,3")
+    with pytest.raises(SystemExit):
+        multicard.main(["--only", "nodes,bogus"])
 
 
 def test_a_failed_lane_fails_the_run_and_stop_leaves_nothing(capsys,
